@@ -1,0 +1,380 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass:
+1. device: the card's name and power limit, the versions, the kernel build;
+2. every CUDA kernel against its plain PyTorch version at the main path's
+   shapes, with its time, the plain version's time, the library call's time
+   (attention: scaled_dot_product_attention) and the least time the card could
+   take (bytes over 3.35 TB/s or flops over the type's peak);
+3. one SDXL-lite and one SD3-lite sampler step with the kernels against the
+   same step through the plain path;
+4. the serving engine on SDXL-lite at full width and depth: calibrate, then a
+   Poisson workload with the patch cache off (the main path, whose kernel
+   launches are counted) and on, every output image checked.
+
+Every comparison phase runs with TF32 off for cuDNN convs and cuBLAS matmuls.
+The last line is ``{"ok": true, "device": {...}}``; without CUDA, or if any
+phase fails, the script exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch.core.patched_ops import patched_groupnorm  # noqa: E402
+from repro_torch.core.patching import split  # noqa: E402
+from repro_torch.core.requests import poisson_workload  # noqa: E402
+from repro_torch.core.serving import EngineConfig, PatchedServeEngine  # noqa: E402
+from repro_torch.core.stitcher import gather_halo  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.groupnorm_stitch import groupnorm_stitch  # noqa: E402
+from repro_torch.kernels.ops import fused_groupnorm_stitch  # noqa: E402
+from repro_torch.kernels.patch_attention import patch_attention  # noqa: E402
+from repro_torch.kernels.ref import ref_attention, ref_groupnorm_stitch  # noqa: E402
+from repro_torch.models.diffusion import SD3_LITE, SDXL_LITE, init_diffusion  # noqa: E402
+from repro_torch.models.sampler import sampler_step  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = {torch.float32: 67e12,            # fp32 outside the tensor cores
+              torch.bfloat16: 989e12}          # bf16 dense tensor cores
+TOL = {torch.float32: {"gn": 1e-4, "attn": 1e-4},
+       torch.bfloat16: {"gn": 2e-2, "attn": 3e-2}}
+CHIP_RES = [(64, 64), (96, 96), (128, 128)]    # 512/768/1024-pixel SD requests
+KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
+    "groupnorm_stitch": (groupnorm_stitch, "src/repro_torch/kernels/csrc/groupnorm_stitch.cu",
+                         "src/repro/kernels/groupnorm_stitch.py:128"),
+    "patch_attention": (patch_attention, "src/repro_torch/kernels/csrc/patch_attention.cu",
+                        "src/repro/kernels/patch_attention.py:72"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, calls: int = 10, replays: int = 5) -> float:
+    """Mean device milliseconds per call, by CUDA events around replays of a
+    CUDA graph that holds ``calls`` calls, so that the host's launch overhead
+    is not timed. The inputs stay in L2 between calls, as they do on the main
+    path, where the producer ran just before."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def bound_ms(n_bytes: float, flops: float, dtype) -> tuple:
+    """(least ms the card could take, 'bytes' or 'operations')."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_err(got: torch.Tensor, want: torch.Tensor, tol: float, what: str) -> float:
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol, msg=lambda m: f"{what}: {m}")
+    return float((got - want).abs().max())
+
+
+# ---------------------------------------------------------------------------
+# phase 1
+# ---------------------------------------------------------------------------
+
+def phase_device() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]} "
+        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    lib = build.build()
+    build.library()
+    log(f"[build] {lib} in {time.perf_counter() - t0:.1f} s")
+    for line in ptxas_summary((lib.parent / "build.log").read_text()):
+        log(f"[build] {line}")
+    return smi
+
+
+def ptxas_summary(text: str) -> list:
+    """One line per compiled kernel instance from nvcc's -Xptxas -v report:
+    registers, shared memory and spills."""
+    out, name, spills = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"([a-z_]+_kernel)I(f|13__nv_bfloat16)Li(\d+)E", line)
+        if "Compiling entry function" in line and m:
+            name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}, {m.group(3)}>"
+        elif name and "spill" in line:
+            spills = line.strip()
+        elif name and "Used" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spills}")
+            name = None
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2
+# ---------------------------------------------------------------------------
+
+def phase_kernels(dev) -> dict:
+    gen = torch.Generator().manual_seed(0)
+    results = {"groupnorm_stitch": [], "patch_attention": []}
+    # GN-stitch on the chip's three-request CSP: level 0 (p=32) and level 1 (p=16)
+    for level, C in ((0, 64), (0, 128), (1, 128), (1, 256)):
+        f = 2 ** level
+        res = [(h // f, w // f) for h, w in CHIP_RES]
+        for dtype in (torch.float32, torch.bfloat16):
+            imgs = [torch.randn(h, w, C, generator=gen).to(dev, dtype) for h, w in res]
+            csp, patches = split(imgs, patch=32 // f)
+            scale = torch.randn(C, generator=gen).to(dev)
+            bias = torch.randn(C, generator=gen).to(dev)
+            P, p = patches.shape[0], patches.shape[1]
+            for exact in (True, False):
+                got = fused_groupnorm_stitch(csp, patches, scale, bias, 8, exact=exact)
+                want = gather_halo(patched_groupnorm(csp, patches, scale, bias, 8,
+                                                     exact=exact), csp.neighbors)
+                torch.cuda.synchronize()
+                err = max_err(got, want, TOL[dtype]["gn"],
+                              f"groupnorm_stitch level {level} C={C} {dtype} exact={exact}")
+                # time the kernel and its plain version on identical stats
+                mean_c = torch.randn(P, C, generator=gen).to(dev)
+                rstd_c = torch.rand(P, C, generator=gen).to(dev) + 0.5
+                nb = torch.as_tensor(csp.neighbors, dtype=torch.int32, device=dev)
+                ms = cuda_ms(lambda: groupnorm_stitch(patches, nb, mean_c, rstd_c,
+                                                      scale, bias))
+                plain = cuda_ms(lambda: ref_groupnorm_stitch(patches, nb, mean_c, rstd_c,
+                                                             scale, bias))
+                es = patches.element_size()
+                n_bytes = (P * p * p * C * es + P * (p + 2) ** 2 * C * es
+                           + 2 * P * C * 4 + 2 * C * 4 + P * 8 * 4)
+                bms, by = bound_ms(n_bytes, 4 * P * (p + 2) ** 2 * C, dtype)
+                row = dict(level=level, P=P, p=p, C=C, dtype=str(dtype).split(".")[1],
+                           exact=exact, max_abs_err=err, ms=ms, plain_ms=plain,
+                           bound_ms=bms, bound_by=by, library_ms=None)
+                results["groupnorm_stitch"].append(row)
+                log(f"[gn_stitch] {json.dumps(row)}")
+    # attention at the UNet's level-1 sequences (D=32) and SD3-lite's (D=16);
+    # q, k, v are strided views of one (B, S, 3, H, D) projection
+    for S, D in ((1024, 32), (2304, 32), (4096, 32), (1024, 16), (4096, 16)):
+        B, H = 2, 4
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = torch.randn(B, S, 3, H, D, generator=gen).to(dev, dtype)
+            q, k, v = qkv.unbind(dim=2)
+            got = patch_attention(q, k, v)
+            want = ref_attention(q, k, v)
+            torch.cuda.synchronize()
+            err = max_err(got, want, TOL[dtype]["attn"], f"patch_attention S={S} D={D} {dtype}")
+            ms = cuda_ms(lambda: patch_attention(q, k, v))
+            plain = cuda_ms(lambda: ref_attention(q, k, v), calls=2)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)))
+            bms, by = bound_ms(4 * B * S * H * D * q.element_size(),
+                               4 * B * H * S * S * D, dtype)
+            row = dict(B=B, S=S, H=H, D=D, dtype=str(dtype).split(".")[1], max_abs_err=err,
+                       ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib_ms)
+            results["patch_attention"].append(row)
+            log(f"[attention] {json.dumps(row)}")
+    return results
+
+
+def reset_launches() -> None:
+    for fn, _, _ in KERNELS.values():
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 3
+# ---------------------------------------------------------------------------
+
+def timed_step(fn) -> tuple:
+    """(result, host ms) of one call that ends in a device synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def profile_step(fn, n: int = 3) -> None:
+    """Device time by kernel over ``n`` warm calls, and the device busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_us = sum(e.device_time for e in kernels)
+    log(f"[profile] {n} steps: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+        f"({100 * busy_us / wall_us:.1f}%), {len(kernels)} device ops")
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"[profile]   {us / 1e3 / n:9.4f} ms/step  {100 * us / busy_us:5.1f}%  {name[:110]}")
+
+
+def phase_step(dev) -> None:
+    rng = np.random.default_rng(1)
+    cases = ((SDXL_LITE, CHIP_RES, 36), (SD3_LITE, [(32, 32), (64, 64)], 16))
+    for cfg, res, per_step in cases:
+        params = init_diffusion(cfg, torch.Generator().manual_seed(0), device=dev)
+        imgs = [torch.as_tensor(rng.normal(size=(h, w, cfg.latent_channels)),
+                                dtype=torch.float32, device=dev) for h, w in res]
+        text = torch.as_tensor(rng.normal(size=(len(res), cfg.n_text, cfg.d_text)),
+                               dtype=torch.float32, device=dev)
+        steps = torch.as_tensor([3, 17, 42][:len(res)])
+        csp, patches = split(imgs)
+        outs, ms = {}, {}
+        for use in (True, False):
+            c = dataclasses.replace(cfg, use_kernels=use)
+            step = lambda c=c: sampler_step(c, params, csp, patches, steps, 50, text)  # noqa: E731
+            reset_launches()
+            outs[use], _ = timed_step(step)
+            n = sum(launches().values())
+            if use and n != per_step:
+                raise RuntimeError(f"{cfg.name}: {n} kernel launches per step, "
+                                   f"expected {per_step}")
+            ms[use] = min(timed_step(step)[1] for _ in range(3))
+        err = max_err(outs[True], outs[False], 1e-3, f"{cfg.name} sampler_step")
+        log(f"[step] {cfg.name} res={res} P={csp.total} p={csp.patch} kernel launches/step="
+            f"{per_step} max_abs_err={err:.3e} (tol 1e-3) step ms: kernels {ms[True]:.3f} "
+            f"plain {ms[False]:.3f}")
+        if cfg.kind == "unet":
+            profile_step(lambda: sampler_step(cfg, params, csp, patches, steps, 50, text))
+
+
+# ---------------------------------------------------------------------------
+# phase 4
+# ---------------------------------------------------------------------------
+
+def serve(dev, params, use_cache: bool) -> tuple:
+    """Calibrate an SDXL-lite engine, then serve a Poisson workload; returns
+    (metrics, launches during the run, engine, workload)."""
+    ecfg = EngineConfig(clock="real", use_cache=use_cache, cache_capacity=512, cache_tau=0.05)
+    eng = PatchedServeEngine(SDXL_LITE, params, ecfg, dict.fromkeys(CHIP_RES, 1.0), CHIP_RES,
+                             device=dev)
+    fit = eng.calibrate(total_steps_hint=20)
+    log(f"[serve] cache={use_cache} calibration probe ms: "
+        f"{[round(x * 1e3, 3) for x in fit['probe_latencies']]}")
+    wl = poisson_workload(3.0, 2.0, CHIP_RES, 10.0, eng.sa, steps=20, seed=2)
+    reset_launches()
+    m = eng.run(wl, max_wall=300)
+    torch.cuda.synchronize()
+    counts = launches()
+    return m, counts, eng, wl
+
+
+def phase_serve(dev) -> dict:
+    params = init_diffusion(SDXL_LITE, torch.Generator().manual_seed(0), device=dev)
+    main_launches = None
+    for use_cache in (False, True):
+        m, counts, eng, wl = serve(dev, params, use_cache)
+        steps = len(m.step_latencies)
+        log(f"[serve] cache={use_cache} requests={len(wl)} completed={m.completed} "
+            f"dropped={m.dropped} SLO satisfaction={m.slo_satisfaction:.3f} steps={steps} "
+            f"mean step ms={1e3 * float(np.mean(m.step_latencies)):.3f} "
+            f"p50 step ms={1e3 * float(np.median(m.step_latencies)):.3f} "
+            f"span s={m.span:.3f} cache savings="
+            f"{float(np.mean(m.compute_savings)) if m.compute_savings else 0.0:.3f} "
+            f"launches={counts}")
+        if m.completed < 1 or m.completed + m.dropped != len(wl):
+            raise RuntimeError(f"serve cache={use_cache}: {m.completed} completed, "
+                               f"{m.dropped} dropped of {len(wl)}")
+        by_rid = {r.rid: r for r in wl}
+        for rid, img in eng.outputs.items():
+            h, w = by_rid[rid].resolution
+            if img.shape != (8 * h, 8 * w, 3) or not np.all(np.isfinite(img)):
+                raise RuntimeError(f"request {rid}: image {img.shape} finite="
+                                   f"{bool(np.all(np.isfinite(img)))}")
+        if len(eng.outputs) != m.completed:
+            raise RuntimeError(f"{len(eng.outputs)} images for {m.completed} completions")
+        if not use_cache:
+            if min(counts.values()) <= 0:
+                raise RuntimeError(f"a kernel was not launched on the main path: {counts}")
+            main_launches = counts
+        del eng
+        torch.cuda.empty_cache()
+    return main_launches
+
+
+def kernels_line(results: dict, main_launches: dict) -> dict:
+    """One entry per kernel: the fp32 case at the largest main-path shape,
+    with the largest fp32 error over all its cases."""
+    out = []
+    for name, (_, source, replaces) in KERNELS.items():
+        rows = [r for r in results[name] if r["dtype"] == "float32"]
+        pick = max(rows, key=lambda r: r["bound_ms"])
+        out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                    "launches": main_launches[name],
+                    "max_abs_err": max(r["max_abs_err"] for r in rows),
+                    "ms": pick["ms"], "plain_ms": pick["plain_ms"], "bound_ms": pick["bound_ms"],
+                    "bound_by": pick["bound_by"], "library_ms": pick["library_ms"],
+                    "shape": {k: v for k, v in pick.items() if k in
+                              ("level", "P", "p", "C", "B", "S", "H", "D", "dtype", "exact")}})
+    return {"kernels": out}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log("TF32 is off for cuDNN convs and cuBLAS matmuls in every phase")
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    smi = phase_device()
+    results = phase_kernels(dev)
+    phase_step(dev)
+    main_launches = phase_serve(dev)
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps(kernels_line(results, main_launches)))
+    log(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,151 @@
+"""Port parity: the kernels' CSP entry points and plain versions against the
+JAX reference.
+
+On the CPU the wrappers take their plain versions (their tensors lie on the
+CPU), so these cases check the surrounding shapes, stats and layouts; the
+kernels themselves are held against the plain versions in
+``test_torch_kernels_cuda.py``, which needs a card.
+Tolerances are the reference's: fp32 1e-4, bf16 2e-2 (GN-stitch) and 3e-2
+(attention)."""
+import re
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import patched_ops as jops  # noqa: E402
+from repro.core import stitcher as jst  # noqa: E402
+from repro.core.patching import split as jsplit  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.patch_attention import patch_attention as jattn  # noqa: E402
+from repro_torch.core.patching import split as tsplit  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels.groupnorm_stitch import groupnorm_stitch  # noqa: E402
+from repro_torch.kernels.patch_attention import patch_attention  # noqa: E402
+
+GN_SWEEP = [  # tests/test_kernels.py::test_groupnorm_stitch_sweep
+    ([(16, 16)], 8, 4, "float32"),
+    ([(16, 16), (32, 32)], 16, 4, "float32"),
+    ([(24, 24), (16, 16), (32, 32)], 8, 2, "float32"),
+    ([(16, 16), (24, 24)], 16, 8, "bfloat16"),
+]
+ATTN_SWEEP = [  # tests/test_kernels.py::test_patch_attention_sweep
+    (2, 100, 4, 32, "float32"),
+    (1, 256, 2, 64, "float32"),
+    (3, 65, 1, 16, "float32"),
+    (2, 128, 2, 32, "bfloat16"),
+    (1, 17, 3, 8, "float32"),
+]
+
+
+def _tol(dtype, bf16_tol):
+    return bf16_tol if dtype == "bfloat16" else 1e-4
+
+
+def _gn_inputs(res, C, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    imgs = [rng.normal(size=(h, w, C)).astype(np.float32) for h, w in res]
+    scale = rng.normal(size=(C,)).astype(np.float32)
+    bias = rng.normal(size=(C,)).astype(np.float32)
+    jc, jp = jsplit([jnp.asarray(i, getattr(jnp, dtype)) for i in imgs])
+    tc, tp = tsplit([torch.from_numpy(i).to(getattr(torch, dtype)) for i in imgs])
+    return jc, jp, tc, tp, scale, bias
+
+
+@pytest.mark.parametrize("res,C,G,dtype", GN_SWEEP)
+@pytest.mark.parametrize("exact", [True, False])
+def test_fused_groupnorm_stitch_matches_reference(res, C, G, dtype, exact):
+    """The port's entry point against the reference's plain composite
+    (patched_groupnorm + gather_halo); the Pallas kernel does not run under
+    the installed jax."""
+    jc, jp, tc, tp, scale, bias = _gn_inputs(res, C, dtype)
+    got = ops.fused_groupnorm_stitch(tc, tp, torch.from_numpy(scale),
+                                     torch.from_numpy(bias), G, exact=exact)
+    want = jst.gather_halo(jops.patched_groupnorm(jc, jp, jnp.asarray(scale),
+                                                  jnp.asarray(bias), G, exact=exact),
+                           jc.neighbors)
+    assert got.dtype == tp.dtype and got.shape == want.shape
+    tol = _tol(dtype, 2e-2)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def test_ref_groupnorm_stitch_matches_reference():
+    rng = np.random.default_rng(2)
+    imgs = [rng.normal(size=(h, w, 8)).astype(np.float32) for h, w in [(16, 16), (32, 32)]]
+    jc, jp = jsplit([jnp.asarray(i) for i in imgs])
+    tc, tp = tsplit([torch.from_numpy(i) for i in imgs])
+    P, C = tp.shape[0], tp.shape[-1]
+    mean_c = rng.normal(size=(P, C)).astype(np.float32)
+    rstd_c = (np.abs(rng.normal(size=(P, C))) + 0.5).astype(np.float32)
+    scale = rng.normal(size=(C,)).astype(np.float32)
+    bias = rng.normal(size=(C,)).astype(np.float32)
+    want = jref.ref_groupnorm_stitch(jp, jc.neighbors, jnp.asarray(mean_c),
+                                     jnp.asarray(rstd_c), jnp.asarray(scale),
+                                     jnp.asarray(bias))
+    got = ref.ref_groupnorm_stitch(tp, tc.neighbors, *map(torch.from_numpy,
+                                                          (mean_c, rstd_c, scale, bias)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,S,H,D,dtype", ATTN_SWEEP)
+def test_grouped_attention_matches_pallas_interpret(B, S, H, D, dtype):
+    rng = np.random.default_rng(1)
+    q, k, v = (rng.normal(size=(B, S, H, D)).astype(np.float32) for _ in range(3))
+    want = jattn(*(jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v)), interpret=True)
+    got = ops.grouped_attention_kernel(
+        *(torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k, v)))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (B, S, H, D)
+    tol = _tol(dtype, 3e-2)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def test_launch_counters_stay_zero_on_cpu():
+    groupnorm_stitch.launches = patch_attention.launches = 0
+    jc, jp, tc, tp, scale, bias = _gn_inputs([(16, 16)], 8, "float32")
+    ops.fused_groupnorm_stitch(tc, tp, torch.from_numpy(scale), torch.from_numpy(bias), 4)
+    q = torch.randn(1, 16, 2, 8)
+    ops.grouped_attention_kernel(q, q, q)
+    assert groupnorm_stitch.launches == 0 and patch_attention.launches == 0
+
+
+def test_launcher_signatures_match_sources():
+    """Every extern "C" launcher in csrc/ has a declared ctypes signature
+    with one argument per C parameter."""
+    found = {}
+    for src in build.sources():
+        text = src.read_text()
+        for name, params in re.findall(r'extern "C" cudaError_t (\w+)\(([^)]*)\)', text):
+            found[name] = len(params.split(","))
+    assert {s.name for s in build.sources()} == {"groupnorm_stitch.cu",
+                                                 "patch_attention.cu"}
+    assert found == {name: len(args) for name, args in build.SIGNATURES.items()}
+
+
+def test_build_hash_covers_sources(tmp_path, monkeypatch):
+    base = build.source_hash()
+    src = tmp_path / "k.cu"
+    src.write_text("// a kernel")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build.source_hash()
+    src.write_text("// an edited kernel")
+    assert build.source_hash() != first != base
+
+
+def test_wrappers_raise_off_the_cpu_instead_of_falling_back():
+    """Only a CPU tensor takes the plain version; any other device either
+    launches the kernel (CUDA) or raises."""
+    x = torch.empty(2, 4, 4, 8, device="meta")
+    nb = torch.empty(2, 8, dtype=torch.int32, device="meta")
+    stats = torch.empty(2, 8, device="meta")
+    vec = torch.empty(8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        groupnorm_stitch(x, nb, stats, stats, vec, vec)
+    q = torch.empty(1, 16, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        patch_attention(q, q, q)
+    assert groupnorm_stitch.launches == 0 and patch_attention.launches == 0
