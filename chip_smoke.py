@@ -8,9 +8,13 @@ Phases, each of which must pass:
 2. every CUDA kernel against its plain PyTorch version at the main path's
    shapes, with its time, the plain version's time, the library call's time
    (attention: scaled_dot_product_attention) and the least time the card could
-   take (bytes over 3.35 TB/s or flops over the type's peak);
+   take: the largest of bytes over 3.35 TB/s and each kind of operation over
+   its peak (GN-stitch: flops on CUDA cores; attention: the tensor-core MMAs
+   of its route and the exponentials), each row's ``bound_by`` naming the
+   term (the kernels line keeps "bytes" or "operations");
 3. one SDXL-lite and one SD3-lite sampler step with the kernels against the
-   same step through the plain path;
+   same step through the plain path, and the UNet step's device time by
+   kernel, the attention's kernel and combine summed;
 4. the serving engine on SDXL-lite at full width and depth: calibrate, then a
    Poisson workload with the patch cache off (the main path, whose kernel
    launches are counted) and on, every output image checked.
@@ -44,14 +48,16 @@ from repro_torch.core.stitcher import gather_halo  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.groupnorm_stitch import groupnorm_stitch  # noqa: E402
 from repro_torch.kernels.ops import fused_groupnorm_stitch  # noqa: E402
-from repro_torch.kernels.patch_attention import patch_attention  # noqa: E402
+from repro_torch.kernels.patch_attention import block_q, patch_attention, split_kv  # noqa: E402
 from repro_torch.kernels.ref import ref_attention, ref_groupnorm_stitch  # noqa: E402
 from repro_torch.models.diffusion import SD3_LITE, SDXL_LITE, init_diffusion  # noqa: E402
 from repro_torch.models.sampler import sampler_step  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {torch.float32: 67e12,            # fp32 outside the tensor cores
-              torch.bfloat16: 989e12}          # bf16 dense tensor cores
+PEAK_FLOPS = {torch.float32: 67e12,            # GN-stitch: fp32 outside the tensor cores
+              torch.bfloat16: 989e12}
+BF16_MMA_FLOPS = 989e12                        # dense tensor cores, data sheet
+EXP2_PER_S = 3.9e12                            # 16 ex2/clock/SM x 132 SMs x ~1.83 GHz
 TOL = {torch.float32: {"gn": 1e-4, "attn": 1e-4},
        torch.bfloat16: {"gn": 2e-2, "attn": 3e-2}}
 CHIP_RES = [(64, 64), (96, 96), (128, 128)]    # 512/768/1024-pixel SD requests
@@ -94,6 +100,22 @@ def cuda_ms(fn, calls: int = 10, replays: int = 5) -> float:
     return start.elapsed_time(end) / (calls * replays)
 
 
+def attention_bound(B: int, S: int, H: int, D: int, dtype) -> tuple:
+    """(least ms the card could take, the term that sets it): the largest of
+    q, k, v read and o written once over the HBM rate; the MMA flops over
+    the bf16 tensor-core peak, three passes for fp32 (3xbf16) and one for
+    bf16; and the B*H*S*S exponentials over the SFU rate."""
+    flops = 4 * B * H * S * S * D
+    terms = {"bytes": 4 * B * S * H * D * (torch.finfo(dtype).bits // 8) / HBM_BYTES_PER_S,
+             "exp": B * H * S * S / EXP2_PER_S}
+    if dtype == torch.float32:
+        terms["mma_3xbf16"] = 3 * flops / BF16_MMA_FLOPS
+    else:
+        terms["mma_bf16"] = flops / BF16_MMA_FLOPS
+    term = max(terms, key=terms.get)
+    return terms[term] * 1e3, term
+
+
 def bound_ms(n_bytes: float, flops: float, dtype) -> tuple:
     """(least ms the card could take, 'bytes' or 'operations')."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
@@ -128,19 +150,21 @@ def phase_device() -> str:
 
 
 def ptxas_summary(text: str) -> list:
-    """One line per compiled kernel instance from nvcc's -Xptxas -v report:
-    registers, shared memory and spills."""
-    out, name, spills = [], None, ""
+    """One line per entry function (every kernel instance of every source,
+    by its mangled name) in nvcc's -Xptxas -v report: registers, shared
+    memory and spills."""
+    entries, cur = [], None
     for line in text.splitlines():
-        m = re.search(r"([a-z_]+_kernel)I(f|13__nv_bfloat16)Li(\d+)E", line)
-        if "Compiling entry function" in line and m:
-            name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}, {m.group(3)}>"
-        elif name and "spill" in line:
-            spills = line.strip()
-        elif name and "Used" in line:
-            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spills}")
-            name = None
-    return out
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"name": m.group(1), "spills": "", "used": ""}
+            entries.append(cur)
+        elif cur and "spill" in line:
+            cur["spills"] = line.strip()
+        elif cur and "Used" in line:
+            cur["used"] = line.split(":", 1)[1].strip()
+            cur = None
+    return [f"{e['name']}: {e['used']}; {e['spills']}" for e in entries]
 
 
 # ---------------------------------------------------------------------------
@@ -185,9 +209,13 @@ def phase_kernels(dev) -> dict:
                 results["groupnorm_stitch"].append(row)
                 log(f"[gn_stitch] {json.dumps(row)}")
     # attention at the UNet's level-1 sequences (D=32) and SD3-lite's (D=16);
-    # q, k, v are strided views of one (B, S, 3, H, D) projection
-    for S, D in ((1024, 32), (2304, 32), (4096, 32), (1024, 16), (4096, 16)):
-        B, H = 2, 4
+    # q, k, v are strided views of one (B, S, 3, H, D) projection. B=1 is what
+    # the main path runs (one request per resolution group), each of its three
+    # S taking the split-KV path.
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B, S, D in ((1, 1024, 32), (1, 2304, 32), (1, 4096, 32), (2, 1024, 32),
+                    (2, 2304, 32), (2, 4096, 32), (2, 1024, 16), (2, 4096, 16)):
+        H = 4
         for dtype in (torch.float32, torch.bfloat16):
             qkv = torch.randn(B, S, 3, H, D, generator=gen).to(dev, dtype)
             q, k, v = qkv.unbind(dim=2)
@@ -199,10 +227,11 @@ def phase_kernels(dev) -> dict:
             plain = cuda_ms(lambda: ref_attention(q, k, v), calls=2)
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)))
-            bms, by = bound_ms(4 * B * S * H * D * q.element_size(),
-                               4 * B * H * S * S * D, dtype)
-            row = dict(B=B, S=S, H=H, D=D, dtype=str(dtype).split(".")[1], max_abs_err=err,
-                       ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib_ms)
+            bms, term = attention_bound(B, S, H, D, dtype)
+            row = dict(B=B, S=S, H=H, D=D, dtype=str(dtype).split(".")[1],
+                       n_split=split_kv(B, S, H, n_sm, block_q(dtype, D)),
+                       max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                       bound_by=term, library_ms=lib_ms)
             results["patch_attention"].append(row)
             log(f"[attention] {json.dumps(row)}")
     return results
@@ -250,6 +279,12 @@ def profile_step(fn, n: int = 3) -> None:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"[profile]   {us / 1e3 / n:9.4f} ms/step  {100 * us / busy_us:5.1f}%  {name[:110]}")
+    for kernel in ("gn_stitch_kernel", "patch_attention_kernel", "patch_attention_combine"):
+        us = sum(t for name, t in by_name.items() if kernel in name)
+        log(f"[profile] {kernel}: {us / 1e3 / n:.4f} ms/step, {100 * us / busy_us:.2f}%")
+    us = sum(t for name, t in by_name.items() if "patch_attention_" in name)
+    log(f"[profile] attention (kernel + combine): {us / 1e3 / n:.4f} ms/step, "
+        f"{100 * us / busy_us:.2f}% of device time")
 
 
 def phase_step(dev) -> None:
@@ -347,9 +382,11 @@ def kernels_line(results: dict, main_launches: dict) -> dict:
                     "launches": main_launches[name],
                     "max_abs_err": max(r["max_abs_err"] for r in rows),
                     "ms": pick["ms"], "plain_ms": pick["plain_ms"], "bound_ms": pick["bound_ms"],
-                    "bound_by": pick["bound_by"], "library_ms": pick["library_ms"],
+                    "bound_by": "bytes" if pick["bound_by"] == "bytes" else "operations",
+                    "library_ms": pick["library_ms"],
                     "shape": {k: v for k, v in pick.items() if k in
-                              ("level", "P", "p", "C", "B", "S", "H", "D", "dtype", "exact")}})
+                              ("level", "P", "p", "C", "B", "S", "H", "D", "dtype", "exact",
+                               "n_split")}})
     return {"kernels": out}
 
 

@@ -3,9 +3,10 @@
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process (all started
 together) for ``sm_90a`` and linked into ``build/kernels/<hash>/
 libpatchedserve_kernels.so`` at the root of the checkout, where ``<hash>``
-covers the sources and the flags, so an edited kernel is rebuilt and an
-unchanged one is loaded as it is. Each source exposes plain ``extern "C"``
-launchers that return a ``cudaError_t``; they are bound with ``ctypes``.
+covers the sources, the ``csrc/*.cuh`` headers and the flags, so an edited
+kernel is rebuilt and an unchanged one is loaded as it is. Each source
+exposes plain ``extern "C"`` launchers that return a ``cudaError_t``; they
+are bound with ``ctypes``.
 Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -32,18 +33,21 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "ps_groupnorm_stitch_f32": [_P] * 7 + [_I] * 4 + [_P],
     "ps_groupnorm_stitch_bf16": [_P] * 7 + [_I] * 4 + [_P],
-    "ps_patch_attention_f32": [_P] * 4 + [_I] * 4 + [_L] * 9 + [ctypes.c_float, _P],
-    "ps_patch_attention_bf16": [_P] * 4 + [_I] * 4 + [_L] * 9 + [ctypes.c_float, _P],
+    "ps_patch_attention_f32": [_P] * 6 + [_I] * 5 + [_L] * 9 + [ctypes.c_float, _P],
+    "ps_patch_attention_bf16": [_P] * 6 + [_I] * 5 + [_L] * 9 + [ctypes.c_float, _P],
+    "ps_patch_attention_block_q": [_I, _I, ctypes.POINTER(_I)],
 }
 
 
 def sources() -> list:
+    """The translation units, one nvcc each."""
     return sorted(CSRC.glob("*.cu"))
 
 
 def source_hash() -> str:
+    """Covers the flags, every source and every header in ``csrc/``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources():
+    for path in sorted([*sources(), *CSRC.glob("*.cuh")]):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]

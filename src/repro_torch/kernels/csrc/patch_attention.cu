@@ -8,179 +8,594 @@
 // What it computes. q, k, v (B, S, H, D) with any batch/sequence/head strides
 // and unit stride over D; o (B, S, H, D) contiguous;
 // o = softmax(q k^T * D^-0.5) v per (batch, head), every key visible.
+// D is 8, 16, 32 or 64; fp32 and bf16.
 //
-// What bounds it on the H100. 4*S*S*D flops per (batch, head) against
-// 4*S*D elements of traffic: at S >= 1024 the work is far above the ridge
-// point, so it is bound by operations. This first version runs them as
-// scalar fp32 FMAs (67 TFLOP/s peak), not on the tensor cores.
+// What bounds it on the H100. 4*S*S*D flops and S*S exponentials per
+// (batch, head) against 4*S*D elements of traffic: at S >= 1024 it is bound
+// by operations, and by which operations depends on the type:
+// - fp32 by the tensor cores: three bf16 passes per product at 989 TFLOP/s,
+//   330 TFLOP/s of fp32 work (B=2, H=4, S=4096, D=32: 0.052 ms, against
+//   0.034 ms of exponentials);
+// - bf16 at D <= 32 by the exponentials, not the MMAs: S*S exp2 at about
+//   3.9e12/s on the special-function units (0.034 ms at the same shape,
+//   against 0.017 ms of bf16 MMA).
 //
-// What the design does about that. One block per (query tile, head, batch);
-// each thread owns one query row and keeps q, the running max, the running
-// sum and the output accumulator in fp32 registers, so no score matrix ever
-// reaches memory (the flash-attention online softmax). A loop walks all of S
-// in key tiles of kBlockK rows staged in shared memory, converted to fp32
-// once per tile and read back as broadcast float4 loads; any S works because
-// K/V are never held whole. The ragged tail is masked in the kernel (keys
-// past S score -inf, query rows past S are not stored), so no padded copies
-// are made. The softmax scale and log2(e) are folded into q so the inner
-// loop uses exp2f. Tensor-core MMA (wgmma) and TMA staging are later work.
+// What the design does about that.
+// - Tensor cores, mma.sync.m16n8k16 bf16 with fp32 accumulators for both
+//   types and both products. A block of 4 warps owns 4 * 16 * kM query rows;
+//   each warp keeps its Q fragments in registers for the whole key loop and
+//   owns kM = 2 m16 row tiles (1 for fp32 at D = 64, for registers), so
+//   every K/V fragment it loads, and in fp32 splits, feeds kM MMAs. Not
+//   wgmma: at D <= 64 a key tile is only 1-4 MMA k-steps deep; the fp32
+//   split needs both halves of every operand, which wgmma would read from
+//   shared memory in its swizzled layout (twice the K/V footprint and a split
+//   pass per tile), while mma.sync splits fragments in registers as they are
+//   loaded; and bf16 is bound by the exponentials at D <= 32, not the MMA rate.
+// - fp32 as 3xbf16. Each operand pair is written x = hi + lo with
+//   hi = bf16(x) and lo = bf16(x - hi); a product accumulates
+//   lo*hi + hi*lo + hi*hi (the small terms first), about 16 bits of each
+//   operand. One pass (bf16 or TF32) misses the fp32 tolerance of 1e-4 at
+//   S = 4096; three bf16 passes hold it with a margin of about 20, at twice
+//   the MMA rate of 3xTF32 (ref.emulated_attention reproduces all three).
+//   bf16 inputs take one pass and round P to bf16 for P*V, as flash
+//   attention does.
+// - The P*V A operand comes straight from the score accumulators: two n8
+//   score tiles are one k16 A fragment, so no shuffle moves P between threads.
+// - K/V staging by cp.async, 16-byte copies, in a ring of kStages = 2 tiles
+//   of 64 keys in shared memory: tile j+1 is in flight while tile j is in the
+//   MMAs. Rows are padded (fp32 +4 floats, bf16 +8 values) so that fragment
+//   loads and ldmatrix.trans (V in bf16) hit 32 distinct banks. Copies past
+//   S zero-fill their row. D = 8 is padded to the MMA depth of 16 with zeros:
+//   in bf16 as zero columns of K in shared memory, written once; in fp32 in
+//   the fragments. Never in device memory. The wrapper checks that every base
+//   pointer and stride is 16-byte aligned.
+// - Online softmax on the accumulator fragments: each thread holds two rows
+//   of each m16 tile (g and g+8); the row max reduces over the thread quad by
+//   two shuffles, the row sum stays per thread until the end. 2^x runs on the
+//   special-function unit (ex2.approx, what exp2f becomes under fast math) on
+//   s * scale*log2(e) - m * scale*log2(e), one FFMA on the fp32 scores (not
+//   folded into q, which in bf16 would round q a second time). Keys past S
+//   score -inf in the last tile; query rows past S are not stored.
+// - Split-KV to fill 132 SMs. The grid is (query tiles * n_split, H, B).
+//   When the B * H * ceil(S / block rows) query tiles are fewer than the SMs,
+//   the wrapper (split_kv in patch_attention.py) cuts the T = ceil(S/64) key
+//   tiles into n_split = min(ceil(SMs / query tiles), T) ranges of whole
+//   tiles, range i holding tiles [i*T/n, (i+1)*T/n), each non-empty. Each
+//   block then writes its unnormalised fp32 (acc, m, l) to scratch, and
+//   patch_attention_combine merges the ranges by log-sum-exp and writes o in
+//   q's type. With n_split == 1 the attention kernel normalises and writes o
+//   itself, and no combine runs.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+using bf16 = __nv_bfloat16;
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBlockK = 64;           // keys per shared-memory tile
+constexpr int kStages = 2;            // tiles in the cp.async ring
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Strides {
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+};
+
+// ---------------------------------------------------------------------------
+// PTX
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-constexpr int kBlockQ = 64;   // query rows per block, one per thread
-constexpr int kBlockK = 32;   // keys per shared-memory tile
-constexpr float kLog2e = 1.4426950408889634f;
+// 16-byte global -> shared copy; writes zeros when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// 2^x on the special-function unit (what exp2f compiles to under fast math)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// the B fragment of an m16n8k16 product from a row-major 16 x 8 bf16 tile
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&b)[2], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b[0]), "=r"(b[1]) : "r"(smem_addr(row)) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// (x0, x1) = hi + lo with hi and lo packed bf16 pairs, x0 in the low half
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// ---------------------------------------------------------------------------
+// The two routes, fp32 (3xbf16) and bf16. Fragment coordinates of
+// mma.m16n8k16: lane = 4*g + t; an accumulator c[4] of an n8 tile holds
+// (row g, cols 2t, 2t+1) and (row g+8, same cols).
+// ---------------------------------------------------------------------------
+
+template <typename T, int D> struct Route;
+
+template <int D> struct Route<float, D> {  // 3xbf16, mma.m16n8k16
+  static constexpr int kM = D <= 32 ? 2 : 1;  // D = 64: within 255 registers
+  static constexpr int kDp = D;               // K columns in shared memory; the
+                                              // fragments pad D = 8 to 16
+  static constexpr int kLd = D + 4;           // shared row, floats
+  static constexpr int kSteps = (D + 15) / 16;
+  struct QFrag { uint32_t hi[kM][kSteps][4], lo[kM][kSteps][4]; };
+
+  // A fragment of k-step kk, pairs of columns: (row g, 2t), (g+8, 2t),
+  // (g, 2t+8), (g+8, 2t+8); columns at or past D are zero
+  __device__ static void load_q(QFrag& f, const float* qb, long long q_ss, int r0, int S,
+                                int t) {
+#pragma unroll
+    for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = r0 + mi * 16 + (i & 1) * 8;
+          const int d = kk * 16 + 2 * t + (i >> 1) * 8;
+          float x0 = 0.f, x1 = 0.f;
+          if (row < S && d < D) {
+            x0 = qb[row * q_ss + d];
+            x1 = qb[row * q_ss + d + 1];
+          }
+          split_bf16x2(x0, x1, f.hi[mi][kk][i], f.lo[mi][kk][i]);
+        }
+  }
+
+  // s[mi][j] = q k^T over keys 8j..8j+7 of the tile; B = (d 2t, 2t+1; key g)
+  // and (d 2t+8, 2t+9; key g)
+  __device__ static void scores(float (&s)[kM][kBlockK / 8][4], const QFrag& f,
+                                const float* ks, int g, int t) {
+#pragma unroll
+    for (int j = 0; j < kBlockK / 8; ++j)
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        const float* kr = ks + (j * 8 + g) * kLd + kk * 16 + 2 * t;
+        uint32_t bh[2] = {0u, 0u}, bl[2] = {0u, 0u};
+        split_bf16x2(kr[0], kr[1], bh[0], bl[0]);
+        if (kk * 16 + 8 < D) split_bf16x2(kr[8], kr[9], bh[1], bl[1]);
+#pragma unroll
+        for (int mi = 0; mi < kM; ++mi) {
+          mma_bf16(s[mi][j], f.lo[mi][kk], bh);
+          mma_bf16(s[mi][j], f.hi[mi][kk], bl);
+          mma_bf16(s[mi][j], f.hi[mi][kk], bh);
+        }
+      }
+  }
+
+  // acc += p v; score tiles 2jj and 2jj+1 are the A fragment of keys
+  // 16jj..16jj+15, B = (keys 2t, 2t+1; d g) and (keys 2t+8, 2t+9; d g)
+  __device__ static void pv(float (&acc)[kM][D / 8][4], const float (&p)[kM][kBlockK / 8][4],
+                            const float* vs, int g, int t, int) {
+#pragma unroll
+    for (int jj = 0; jj < kBlockK / 16; ++jj) {
+      uint32_t ah[kM][4], al[kM][4];
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split_bf16x2(p[mi][2 * jj + i / 2][(i % 2) * 2], p[mi][2 * jj + i / 2][(i % 2) * 2 + 1],
+                       ah[mi][i], al[mi][i]);
+      const float* vr = vs + (jj * 16 + 2 * t) * kLd + g;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        uint32_t bh[2], bl[2];
+        split_bf16x2(vr[n * 8], vr[kLd + n * 8], bh[0], bl[0]);
+        split_bf16x2(vr[8 * kLd + n * 8], vr[9 * kLd + n * 8], bh[1], bl[1]);
+#pragma unroll
+        for (int mi = 0; mi < kM; ++mi) {
+          mma_bf16(acc[mi][n], al[mi], bh);
+          mma_bf16(acc[mi][n], ah[mi], bl);
+          mma_bf16(acc[mi][n], ah[mi], bh);
+        }
+      }
+    }
+  }
+};
+
+template <int D> struct Route<bf16, D> {  // bf16, mma.m16n8k16
+  static constexpr int kM = 2;
+  static constexpr int kDp = D < 16 ? 16 : D;  // MMA depth 16: D = 8 is zero-padded
+  static constexpr int kLd = kDp + 8;          // shared row, bf16 values
+  struct QFrag { uint32_t a[kM][kDp / 16][4]; };
+
+  // A fragment of k-step kk, pairs of columns: (row g, 2t), (g+8, 2t),
+  // (g, 2t+8), (g+8, 2t+8); columns at or past D are the zero padding
+  __device__ static void load_q(QFrag& f, const bf16* qb, long long q_ss, int r0, int S,
+                                int t) {
+#pragma unroll
+    for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+      for (int kk = 0; kk < kDp / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = r0 + mi * 16 + (i & 1) * 8;
+          const int d = kk * 16 + 2 * t + (i >> 1) * 8;
+          f.a[mi][kk][i] = (row < S && d < D)
+                               ? *reinterpret_cast<const uint32_t*>(qb + row * q_ss + d) : 0u;
+        }
+  }
+
+  __device__ static void scores(float (&s)[kM][kBlockK / 8][4], const QFrag& f,
+                                const bf16* ks, int g, int t) {
+#pragma unroll
+    for (int j = 0; j < kBlockK / 8; ++j)
+#pragma unroll
+      for (int kk = 0; kk < kDp / 16; ++kk) {
+        const bf16* kr = ks + (j * 8 + g) * kLd + kk * 16 + 2 * t;
+        const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(kr),
+                               *reinterpret_cast<const uint32_t*>(kr + 8)};
+#pragma unroll
+        for (int mi = 0; mi < kM; ++mi) mma_bf16(s[mi][j], f.a[mi][kk], b);
+      }
+  }
+
+  // acc += bf16(p) v; score tiles 2jj and 2jj+1 are the A fragment of keys
+  // 16jj..16jj+15, and ldmatrix.trans reads V's matching B fragment
+  __device__ static void pv(float (&acc)[kM][D / 8][4], const float (&p)[kM][kBlockK / 8][4],
+                            const bf16* vs, int, int, int lane) {
+#pragma unroll
+    for (int jj = 0; jj < kBlockK / 16; ++jj) {
+      uint32_t a[kM][4];
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi) {
+        a[mi][0] = pack_bf16(p[mi][2 * jj][0], p[mi][2 * jj][1]);
+        a[mi][1] = pack_bf16(p[mi][2 * jj][2], p[mi][2 * jj][3]);
+        a[mi][2] = pack_bf16(p[mi][2 * jj + 1][0], p[mi][2 * jj + 1][1]);
+        a[mi][3] = pack_bf16(p[mi][2 * jj + 1][2], p[mi][2 * jj + 1][3]);
+      }
+      const bf16* vr = vs + (jj * 16 + (lane & 15)) * kLd;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        uint32_t b[2];
+        ldsm_x2_trans(b, vr + n * 8);
+#pragma unroll
+        for (int mi = 0; mi < kM; ++mi) mma_bf16(acc[mi][n], a[mi], b);
+      }
+    }
+  }
+};
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kBlockQ)
+__host__ __device__ constexpr int block_q() {
+  return 16 * Route<T, D>::kM * kWarps;
+}
+
+template <typename T, int D>
+constexpr int smem_bytes() {
+  return 2 * kStages * kBlockK * Route<T, D>::kLd * static_cast<int>(sizeof(T));
+}
+
+// ---------------------------------------------------------------------------
+// Kernels
+// ---------------------------------------------------------------------------
+
+// grid (query tiles * n_split, H, B). n_split == 1: writes o. Otherwise
+// writes split blockIdx.x / query tiles's unnormalised fp32 partial
+// part_o[split][row][D] and part_ml[split][row] = (m * scale*log2e, l), row
+// indexing o's (B, S, H) rows.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
 patch_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                       long long q_sb, long long q_ss, long long q_sh,
-                       long long k_sb, long long k_ss, long long k_sh,
-                       long long v_sb, long long v_ss, long long v_sh, float scale) {
-  __shared__ __align__(16) float ks[kBlockK][D];
-  __shared__ __align__(16) float vs[kBlockK][D];
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ part_o, float* __restrict__ part_ml, int S, int H,
+                       int n_split, Strides st, float scale_log2) {
+  using R = Route<T, D>;
+  constexpr int kM = R::kM;
+  constexpr int kBq = block_q<T, D>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);              // [kStages][kBlockK][kLd]
+  T* vs = ks + kStages * kBlockK * R::kLd;
+
+  const int n_qt = (S + kBq - 1) / kBq;
+  const int qt = blockIdx.x % n_qt;
+  const int split = blockIdx.x / n_qt;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int row = blockIdx.x * kBlockQ + threadIdx.x;
-  const bool valid = row < S;
+  const int n_kt = (S + kBlockK - 1) / kBlockK;
+  const int kt0 = static_cast<int>(static_cast<long long>(split) * n_kt / n_split);
+  const int n_tiles = static_cast<int>(static_cast<long long>(split + 1) * n_kt / n_split) - kt0;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = qt * kBq + (threadIdx.x / 32) * 16 * kM + g;  // row r0 + 16 mi + 8 r
+  const T* kb = k + b * st.k_sb + h * st.k_sh;
+  const T* vb = v + b * st.v_sb + h * st.v_sh;
 
-  float qr[D];
-  float acc[D];
-  const T* qp = q + b * q_sb + (long long)(valid ? row : 0) * q_ss + h * q_sh;
-  const float qscale = scale * kLog2e;
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = valid ? to_f32(qp[d]) * qscale : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = -INFINITY;   // running max (log2 domain)
-  float l = 0.f;         // running sum of exp2(s - m)
-
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
-  for (int k0 = 0; k0 < S; k0 += kBlockK) {
-    __syncthreads();     // the previous tile is consumed
-    for (int e = threadIdx.x; e < kBlockK * D; e += kBlockQ) {
-      const int j = e / D;
-      const int d = e % D;
-      const int key = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (key < S) {
-        kv = to_f32(kb[key * k_ss + d]);
-        vv = to_f32(vb[key * v_ss + d]);
-      }
-      ks[j][d] = kv;
-      vs[j][d] = vv;
-    }
-    __syncthreads();
-
-    const int nvalid = min(kBlockK, S - k0);
-    float s[kBlockK];
-    float tile_max = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(&ks[j][d]);
-        dot = fmaf(qr[d], kk.x, dot);
-        dot = fmaf(qr[d + 1], kk.y, dot);
-        dot = fmaf(qr[d + 2], kk.z, dot);
-        dot = fmaf(qr[d + 3], kk.w, dot);
-      }
-      s[j] = j < nvalid ? dot : -INFINITY;
-      tile_max = fmaxf(tile_max, s[j]);
-    }
-    // every tile holds at least one valid key, so m_new is finite
-    const float m_new = fmaxf(m, tile_max);
-    const float corr = exp2f(m - m_new);
-    l *= corr;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= corr;
-#pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      const float pj = exp2f(s[j] - m_new);
-      l += pj;
-#pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(&vs[j][d]);
-        acc[d] = fmaf(pj, vv.x, acc[d]);
-        acc[d + 1] = fmaf(pj, vv.y, acc[d + 1]);
-        acc[d + 2] = fmaf(pj, vv.z, acc[d + 2]);
-        acc[d + 3] = fmaf(pj, vv.w, acc[d + 3]);
-      }
-    }
-    m = m_new;
+  if constexpr (R::kDp > D) {  // zero K's padding columns once; copies never touch them
+    for (int i = threadIdx.x; i < kStages * kBlockK * (R::kDp - D); i += kThreads)
+      ks[(i / (R::kDp - D)) * R::kLd + D + i % (R::kDp - D)] = __float2bfloat16(0.f);
   }
 
-  if (valid) {
-    T* op = o + (((long long)b * S + row) * H + h) * D;
-    const float inv = 1.f / l;
+  auto load_tile = [&](int i) {  // key tile kt0 + i into stage i % kStages
+    constexpr int kChunk = 16 / static_cast<int>(sizeof(T));
+    constexpr int kPerRow = D / kChunk;
+    T* kd = ks + (i % kStages) * kBlockK * R::kLd;
+    T* vd = vs + (i % kStages) * kBlockK * R::kLd;
+    const int key0 = (kt0 + i) * kBlockK;
 #pragma unroll
-    for (int d = 0; d < D; ++d) op[d] = from_f32<T>(acc[d] * inv);
+    for (int it = 0; it < (kBlockK * kPerRow + kThreads - 1) / kThreads; ++it) {
+      const int c = threadIdx.x + it * kThreads;
+      if (c >= kBlockK * kPerRow) break;
+      const int j = c / kPerRow;
+      const int col = (c % kPerRow) * kChunk;
+      const bool ok = key0 + j < S;
+      const long long key = ok ? key0 + j : 0;
+      cp_async16(kd + j * R::kLd + col, kb + key * st.k_ss + col, ok);
+      cp_async16(vd + j * R::kLd + col, vb + key * st.v_ss + col, ok);
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_tiles) load_tile(i);
+    cp_async_commit();
+  }
+
+  typename R::QFrag qf;
+  R::load_q(qf, q + b * st.q_sb + h * st.q_sh, st.q_ss, r0, S, t);
+
+  float acc[kM][D / 8][4];
+  float m[kM][2];  // running max of the raw scores, rows r0 + 16 mi + 8 r
+  float l[kM][2];  // this thread's part of the running sum
+#pragma unroll
+  for (int mi = 0; mi < kM; ++mi) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      acc[mi][n][0] = acc[mi][n][1] = acc[mi][n][2] = acc[mi][n][3] = 0.f;
+    m[mi][0] = m[mi][1] = -INFINITY;
+    l[mi][0] = l[mi][1] = 0.f;
+  }
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile i has landed; tile i-1's stage is free again
+    if (i + kStages - 1 < n_tiles) load_tile(i + kStages - 1);
+    cp_async_commit();
+
+    const T* kst = ks + (i % kStages) * kBlockK * R::kLd;
+    const T* vst = vs + (i % kStages) * kBlockK * R::kLd;
+    float s[kM][kBlockK / 8][4];
+#pragma unroll
+    for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+      for (int j = 0; j < kBlockK / 8; ++j)
+        s[mi][j][0] = s[mi][j][1] = s[mi][j][2] = s[mi][j][3] = 0.f;
+    R::scores(s, qf, kst, g, t);
+
+    const int key0 = (kt0 + i) * kBlockK;
+    if (key0 + kBlockK > S) {  // the ragged last tile
+#pragma unroll
+      for (int j = 0; j < kBlockK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (key0 + j * 8 + 2 * t + (e & 1) >= S) {
+#pragma unroll
+            for (int mi = 0; mi < kM; ++mi) s[mi][j][e] = -INFINITY;
+          }
+    }
+
+    // every tile holds a valid key, so the new max is finite
+#pragma unroll
+    for (int mi = 0; mi < kM; ++mi) {
+      float mx[2] = {m[mi][0], m[mi][1]};
+#pragma unroll
+      for (int j = 0; j < kBlockK / 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[mi][j][0], s[mi][j][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[mi][j][2], s[mi][j][3]));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+        const float corr = ex2((m[mi][r] - mx[r]) * scale_log2);
+        m[mi][r] = mx[r];
+        l[mi][r] *= corr;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          acc[mi][n][2 * r] *= corr;
+          acc[mi][n][2 * r + 1] *= corr;
+        }
+      }
+      const float mc[2] = {m[mi][0] * scale_log2, m[mi][1] * scale_log2};
+#pragma unroll
+      for (int j = 0; j < kBlockK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[mi][j][e] = ex2(fmaf(s[mi][j][e], scale_log2, -mc[e >> 1]));
+          l[mi][e >> 1] += s[mi][j][e];
+        }
+    }
+    R::pv(acc, s, vst, g, t, lane);
+  }
+  cp_async_wait<0>();
+
+  const long long rows = static_cast<long long>(gridDim.z) * S * H;
+#pragma unroll
+  for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[mi][r];
+      sum += __shfl_xor_sync(kFull, sum, 1);
+      sum += __shfl_xor_sync(kFull, sum, 2);
+      const int row = r0 + 16 * mi + 8 * r;
+      if (row >= S) continue;
+      const long long orow = (static_cast<long long>(b) * S + row) * H + h;
+      if (n_split == 1) {
+        const float inv = 1.f / sum;
+        T* op = o + orow * D + 2 * t;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          store2(op + n * 8, acc[mi][n][2 * r] * inv, acc[mi][n][2 * r + 1] * inv);
+      } else {
+        const long long prow = split * rows + orow;
+        float* pp = part_o + prow * D + 2 * t;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          store2(pp + n * 8, acc[mi][n][2 * r], acc[mi][n][2 * r + 1]);
+        if (t == 0) store2(part_ml + prow * 2, m[mi][r] * scale_log2, sum);
+      }
+    }
+}
+
+// o[row][d] = sum_s 2^(m_s - M) acc_s[row][d] / sum_s 2^(m_s - M) l_s, M = max_s m_s
+template <typename T>
+__global__ void __launch_bounds__(256)
+patch_attention_combine(const float* __restrict__ part_o, const float* __restrict__ part_ml,
+                        T* __restrict__ o, long long rows, int D, int n_split) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= rows * D) return;
+  const long long row = i / D;
+  float mx = -INFINITY;
+  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, part_ml[(s * rows + row) * 2]);
+  float num = 0.f, den = 0.f;
+  for (int s = 0; s < n_split; ++s) {
+    const float w = ex2(part_ml[(s * rows + row) * 2] - mx);
+    den = fmaf(w, part_ml[(s * rows + row) * 2 + 1], den);
+    num = fmaf(w, part_o[s * rows * D + i], num);
+  }
+  if constexpr (sizeof(T) == 4) {
+    o[i] = num / den;
+  } else {
+    o[i] = __float2bfloat16(num / den);
   }
 }
 
 template <typename T, int D>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int B, int S,
-                     int H, const long long* st, float scale, cudaStream_t stream) {
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
-  patch_attention_kernel<T, D><<<grid, kBlockQ, 0, stream>>>(
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, float* part_o,
+                     float* part_ml, int B, int S, int H, int n_split, const Strides& st,
+                     float scale, cudaStream_t stream) {
+  constexpr int kSmem = smem_bytes<T, D>();
+  static bool configured = false;  // the shared-memory opt-in, once per instance
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        patch_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const int n_qt = (S + block_q<T, D>() - 1) / block_q<T, D>();
+  const dim3 grid(n_qt * n_split, H, B);
+  patch_attention_kernel<T, D><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], scale);
+      static_cast<T*>(o), part_o, part_ml, S, H, n_split, st, scale * kLog2e);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  const long long rows = static_cast<long long>(B) * S * H;
+  const long long blocks = (rows * D + 255) / 256;
+  patch_attention_combine<T><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+      part_o, part_ml, static_cast<T*>(o), rows, D, n_split);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                   int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-                   long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-                   long long v_sh, float scale, void* stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* part_o,
+                   void* part_ml, int B, int S, int H, int D, int n_split, long long q_sb,
+                   long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+                   long long k_sh, long long v_sb, long long v_ss, long long v_sh, float scale,
+                   void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || B > 65535 || H > 65535) return cudaErrorInvalidValue;
-  const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+  const int n_kt = (S + kBlockK - 1) / kBlockK;
+  if (n_split < 1 || n_split > n_kt) return cudaErrorInvalidValue;
+  if (n_split > 1 && (part_o == nullptr || part_ml == nullptr)) return cudaErrorInvalidValue;
+  const Strides st{q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+  float* po = static_cast<float*>(part_o);
+  float* pml = static_cast<float*>(part_ml);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 8: return launch_d<T, 8>(q, k, v, o, B, S, H, st, scale, s);
-    case 16: return launch_d<T, 16>(q, k, v, o, B, S, H, st, scale, s);
-    case 32: return launch_d<T, 32>(q, k, v, o, B, S, H, st, scale, s);
-    case 64: return launch_d<T, 64>(q, k, v, o, B, S, H, st, scale, s);
+    case 8: return launch_d<T, 8>(q, k, v, o, po, pml, B, S, H, n_split, st, scale, s);
+    case 16: return launch_d<T, 16>(q, k, v, o, po, pml, B, S, H, n_split, st, scale, s);
+    case 32: return launch_d<T, 32>(q, k, v, o, po, pml, B, S, H, n_split, st, scale, s);
+    case 64: return launch_d<T, 64>(q, k, v, o, po, pml, B, S, H, n_split, st, scale, s);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int block_q_of(int D) {
+  switch (D) {
+    case 8: return block_q<T, 8>();
+    case 16: return block_q<T, 16>();
+    case 32: return block_q<T, 32>();
+    case 64: return block_q<T, 64>();
+    default: return 0;
   }
 }
 
 }  // namespace
 
-// Strides are in elements; the head dimension must have unit stride.
+// Query rows per block of the (bf16 ? bf16 : fp32, D) instance, which the
+// wrapper's split rule counts blocks with.
+extern "C" cudaError_t ps_patch_attention_block_q(int bf16, int D, int* rows) {
+  *rows = bf16 ? block_q_of<__nv_bfloat16>(D) : block_q_of<float>(D);
+  return *rows > 0 ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Strides are in elements; the head dimension must have unit stride, and every
+// base pointer and stride must be 16-byte aligned. part_o (n_split, B*S*H, D)
+// and part_ml (n_split, B*S*H, 2) are fp32 scratch, unused when n_split == 1.
 extern "C" cudaError_t ps_patch_attention_f32(const void* q, const void* k, const void* v,
-                                              void* o, int B, int S, int H, int D,
+                                              void* o, void* part_o, void* part_ml, int B,
+                                              int S, int H, int D, int n_split,
                                               long long q_sb, long long q_ss, long long q_sh,
                                               long long k_sb, long long k_ss, long long k_sh,
                                               long long v_sb, long long v_ss, long long v_sh,
                                               float scale, void* stream) {
-  return launch<float>(q, k, v, o, B, S, H, D, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-                       v_ss, v_sh, scale, stream);
+  return launch<float>(q, k, v, o, part_o, part_ml, B, S, H, D, n_split, q_sb, q_ss, q_sh,
+                       k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, stream);
 }
 
 extern "C" cudaError_t ps_patch_attention_bf16(const void* q, const void* k, const void* v,
-                                               void* o, int B, int S, int H, int D,
+                                               void* o, void* part_o, void* part_ml, int B,
+                                               int S, int H, int D, int n_split,
                                                long long q_sb, long long q_ss, long long q_sh,
                                                long long k_sb, long long k_ss, long long k_sh,
                                                long long v_sb, long long v_ss, long long v_sh,
                                                float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, S, H, D, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                               v_sb, v_ss, v_sh, scale, stream);
+  return launch<bf16>(q, k, v, o, part_o, part_ml, B, S, H, D, n_split, q_sb, q_ss, q_sh,
+                      k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, stream);
 }

@@ -2,15 +2,18 @@
 the port of the TPU kernel ``src/repro/kernels/patch_attention.py``.
 
 A CPU tensor takes the plain version (``ref.ref_attention``); a CUDA tensor
-launches the kernel or raises. ``patch_attention.launches`` counts the kernel
-launches.
+launches the kernel or raises. ``patch_attention.launches`` counts wrapper
+calls that launched, one per call, whether or not the split-KV combine ran.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import ref_attention
+from repro_torch.kernels.ref import BLOCK_K, ref_attention
 
 _LAUNCHERS = {torch.float32: "ps_patch_attention_f32",
               torch.bfloat16: "ps_patch_attention_bf16"}
@@ -22,9 +25,39 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"patch_attention: {msg}")
 
 
+def split_kv(B: int, S: int, H: int, n_sm: int, block_q: int) -> int:
+    """How many key ranges each (query tile, head, batch) is cut into.
+
+    1 when the B * H * ceil(S / block_q) query tiles already fill the
+    ``n_sm`` SMs; otherwise enough ranges to reach ``n_sm`` blocks, at most
+    one per key tile so that every range holds a key (``ref.key_ranges``).
+    ``block_q`` is the query rows per block of the kernel instance that runs
+    (``block_q(dtype, D)``)."""
+    q_tiles = B * H * -(-S // block_q)
+    if q_tiles >= n_sm:
+        return 1
+    return min(-(-n_sm // q_tiles), -(-S // BLOCK_K))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def block_q(dtype: torch.dtype, D: int) -> int:
+    """Query rows per block of the kernel instance for (dtype, D), as the
+    library reports it (it builds the library)."""
+    rows = ctypes.c_int()
+    build.check(build.library().ps_patch_attention_block_q(
+        int(dtype == torch.bfloat16), D, ctypes.byref(rows)), "patch_attention block_q")
+    return rows.value
+
+
 def patch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """q,k,v: (B, S, H, D), any strides with unit stride over D ->
-    (B, S, H, D) contiguous full bidirectional attention, scale D**-0.5."""
+    (B, S, H, D) contiguous full bidirectional attention, scale D**-0.5.
+    On CUDA every base pointer and stride must be 16-byte aligned."""
     if q.device.type == "cpu":
         return ref_attention(q, k, v)
     _check(q.device.type == "cuda", f"unsupported device {q.device}")
@@ -35,15 +68,28 @@ def patch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     for t in (k, v):
         _check(t.shape == q.shape and t.dtype == q.dtype and t.device == q.device,
                "q, k and v must share shape, dtype and device")
-    for t in (q, k, v):
+    es = q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
         _check(t.stride(3) == 1, "the head dimension must have unit stride")
+        _check(t.data_ptr() % 16 == 0
+               and all(st * es % 16 == 0 for st, n in zip(t.stride()[:3], t.shape) if n > 1),
+               f"{name} needs a 16-byte aligned base pointer and batch, row and head "
+               f"strides (the kernel copies 16-byte chunks), got strides {t.stride()}")
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     if q.numel() == 0:
         return out
+    n_split = split_kv(B, S, H, sm_count(q.device.index), block_q(q.dtype, D))
+    part_o = part_ml = None
+    if n_split > 1:
+        part_o = torch.empty((n_split, B * S * H, D), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((n_split, B * S * H, 2), dtype=torch.float32, device=q.device)
     fn = getattr(build.library(), _LAUNCHERS[q.dtype])
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, D,
-                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], D ** -0.5, stream),
+    build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   None if part_o is None else part_o.data_ptr(),
+                   None if part_ml is None else part_ml.data_ptr(),
+                   B, S, H, D, n_split, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                   D ** -0.5, stream),
                 "patch_attention")
     patch_attention.launches += 1
     return out

@@ -127,13 +127,46 @@ def test_launcher_signatures_match_sources():
 
 
 def test_build_hash_covers_sources(tmp_path, monkeypatch):
+    """An edit to a source or to a header it includes rebuilds the library;
+    only the sources are compiled."""
     base = build.source_hash()
     src = tmp_path / "k.cu"
-    src.write_text("// a kernel")
+    src.write_text('#include "k.cuh"')
+    hdr = tmp_path / "k.cuh"
+    hdr.write_text("// a header")
     monkeypatch.setattr(build, "CSRC", tmp_path)
     first = build.source_hash()
-    src.write_text("// an edited kernel")
-    assert build.source_hash() != first != base
+    src.write_text('#include "k.cuh"  // an edited kernel')
+    second = build.source_hash()
+    hdr.write_text("// an edited header")
+    assert len({base, first, second, build.source_hash()}) == 4
+    assert build.sources() == [src]
+
+
+def test_ptxas_summary_reports_every_entry_function():
+    """chip_smoke.py's register report names every kernel instance of every
+    source, whatever its template arguments."""
+    import sys
+    sys.path.insert(0, str(build.BUILD_ROOT.parents[1]))
+    import chip_smoke
+    log = "\n".join(  # names and lines as nvcc 12 on sm_90a prints them
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+        f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
+        f"ptxas info    : Used {regs} registers, used 1 barriers"
+        for name, regs, spill in (
+            ("_ZN51_GLOBAL__N__0d2c3d6d_18_patch_attention_cu_219643da22patch_attention_"
+             "kernelIfLi32EEEvPKT_S3_S3_PS1_PfS5_iiiNS_7StridesEf", 157, 0),
+            ("_ZN51_GLOBAL__N__0d2c3d6d_18_patch_attention_cu_219643da23patch_attention_"
+             "combineI13__nv_bfloat16EEvPKfS3_PT_xii", 32, 0),
+            ("_ZN52_GLOBAL__N__5f7f384f_19_groupnorm_stitch_cu_984ee8c716gn_stitch_"
+             "kernelIfLi4EEEvPKT_PKiPKfS7_S7_S7_PS1_iii", 32, 8)))
+    lines = chip_smoke.ptxas_summary(log)
+    assert len(lines) == 3
+    for line, (name, regs) in zip(lines, (("patch_attention_kernel", 157),
+                                           ("patch_attention_combine", 32),
+                                           ("gn_stitch_kernel", 32))):
+        assert name in line and f"Used {regs} registers" in line
+    assert "8 bytes spill stores" in lines[2]
 
 
 def test_wrappers_raise_off_the_cpu_instead_of_falling_back():

@@ -26,6 +26,10 @@ ATTN_SWEEP = [  # tests/test_kernels.py::test_patch_attention_sweep, plus a main
     (2, 128, 2, 32, "bfloat16"),
     (1, 17, 3, 8, "float32"),
     (2, 1024, 4, 32, "float32"),
+    (1, 1024, 4, 32, "float32"),      # split-KV: 64 query tiles on 132 SMs
+    (2, 4096, 4, 32, "float32"),
+    (2, 1024, 4, 32, "bfloat16"),
+    (1, 65, 2, 8, "bfloat16"),        # D=8 padded to the MMA depth, ragged tail
 ]
 
 
@@ -74,3 +78,20 @@ def test_patch_attention_kernel_matches_plain_on_cuda(B, S, H, D, dtype):
     tol = _tol(dtype, 3e-2)
     torch.testing.assert_close(got.float(), ref.ref_attention(q, k, v).float(),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_patch_attention_rejects_misaligned_views_on_cuda():
+    """The kernel copies 16-byte chunks: a base pointer or stride off 16 bytes
+    raises before anything is launched."""
+    _need_cuda()
+    B, S, H, D = 1, 64, 2, 16
+    flat = torch.randn(B * S * H * D + 1, device="cuda")
+    shifted = flat[1:].view(B, S, H, D)                       # base off by 4 bytes
+    padded = torch.randn(B, S, H * D + 1, device="cuda")[..., :H * D].view(B, S, H, D)
+    ok = torch.randn(B, S, H, D, device="cuda")
+    before = patch_attention.launches
+    for q, k, v in ((shifted, ok, ok), (ok, padded, ok), (ok, ok, shifted)):
+        with pytest.raises(ValueError, match="16-byte"):
+            patch_attention(q, k, v)
+    assert patch_attention.launches == before
