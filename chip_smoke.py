@@ -11,10 +11,15 @@ Phases, each of which must pass:
    take: the largest of bytes over 3.35 TB/s and each kind of operation over
    its peak (GN-stitch: flops on CUDA cores; attention: the tensor-core MMAs
    of its route and the exponentials), each row's ``bound_by`` naming the
-   term (the kernels line keeps "bytes" or "operations");
+   term (the kernels line keeps "bytes" or "operations"). GN-stitch is the
+   whole ``fused_groupnorm_stitch`` call (partial sums, then the stitch),
+   timed inside a CUDA graph, which also shows it makes no host round trip;
+   its two kernels are timed alone as well;
 3. one SDXL-lite and one SD3-lite sampler step with the kernels against the
    same step through the plain path, and the UNet step's device time by
-   kernel, the attention's kernel and combine summed;
+   kernel, the attention's kernel and combine summed, the GroupNorm+stitch
+   path's two kernels summed, with device ops, memsets, host-to-device
+   copies and stream synchronises per step;
 4. the serving engine on SDXL-lite at full width and depth: calibrate, then a
    Poisson workload with the patch cache off (the main path, whose kernel
    launches are counted) and on, every output image checked.
@@ -40,16 +45,19 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.core.csp_device import csp_device  # noqa: E402
 from repro_torch.core.patched_ops import patched_groupnorm  # noqa: E402
 from repro_torch.core.patching import split  # noqa: E402
 from repro_torch.core.requests import poisson_workload  # noqa: E402
 from repro_torch.core.serving import EngineConfig, PatchedServeEngine  # noqa: E402
 from repro_torch.core.stitcher import gather_halo  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.groupnorm_stitch import groupnorm_stitch  # noqa: E402
+from repro_torch.kernels.groupnorm_stitch import (  # noqa: E402
+    gn_partials, gn_stitch, groupnorm_stitch)
 from repro_torch.kernels.ops import fused_groupnorm_stitch  # noqa: E402
 from repro_torch.kernels.patch_attention import block_q, patch_attention, split_kv  # noqa: E402
-from repro_torch.kernels.ref import ref_attention, ref_groupnorm_stitch  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    ref_attention, ref_gn_finalize, ref_gn_partials, ref_groupnorm_stitch)
 from repro_torch.models.diffusion import SD3_LITE, SDXL_LITE, init_diffusion  # noqa: E402
 from repro_torch.models.sampler import sampler_step  # noqa: E402
 
@@ -67,6 +75,8 @@ KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
     "patch_attention": (patch_attention, "src/repro_torch/kernels/csrc/patch_attention.cu",
                         "src/repro/kernels/patch_attention.py:72"),
 }
+# the two kernels inside one groupnorm_stitch call, each counted by its wrapper
+GN_KERNELS = (gn_partials, gn_stitch)
 
 
 def log(msg: str) -> None:
@@ -123,9 +133,11 @@ def bound_ms(n_bytes: float, flops: float, dtype) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def max_err(got: torch.Tensor, want: torch.Tensor, tol: float, what: str) -> float:
+def max_err(got: torch.Tensor, want: torch.Tensor, tol: float, what: str,
+            atol: float | None = None) -> float:
     got, want = got.float(), want.float()
-    torch.testing.assert_close(got, want, rtol=tol, atol=tol, msg=lambda m: f"{what}: {m}")
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol if atol is None else atol,
+                               msg=lambda m: f"{what}: {m}")
     return float((got - want).abs().max())
 
 
@@ -184,28 +196,49 @@ def phase_kernels(dev) -> dict:
             scale = torch.randn(C, generator=gen).to(dev)
             bias = torch.randn(C, generator=gen).to(dev)
             P, p = patches.shape[0], patches.shape[1]
+            meta = csp_device(csp, dev)
+            part = gn_partials(patches, 8)
+            # sums of p*p*C/8 terms in another order, fp32 in both
+            part_err = max_err(part, ref_gn_partials(patches, 8), 1e-4,
+                               f"gn_partials level {level} C={C} {dtype}", atol=1e-3)
+            partials_ms = cuda_ms(lambda: gn_partials(patches, 8))
             for exact in (True, False):
-                got = fused_groupnorm_stitch(csp, patches, scale, bias, 8, exact=exact)
+                def whole(exact=exact):
+                    return fused_groupnorm_stitch(csp, patches, scale, bias, 8, exact=exact)
+
+                def plain(exact=exact):   # the CPU path: partials, finalise, stitch
+                    mean, rstd = ref_gn_finalize(ref_gn_partials(patches, 8),
+                                                 meta.patch_req_i32, meta.request_offset_i32,
+                                                 p, C, 1e-5, exact)
+                    return ref_groupnorm_stitch(patches, meta.neighbors_i32,
+                                                mean.repeat_interleave(C // 8, dim=-1),
+                                                rstd.repeat_interleave(C // 8, dim=-1),
+                                                scale, bias)
+
+                got = whole()
                 want = gather_halo(patched_groupnorm(csp, patches, scale, bias, 8,
-                                                     exact=exact), csp.neighbors)
+                                                     exact=exact), meta.neighbors)
                 torch.cuda.synchronize()
-                err = max_err(got, want, TOL[dtype]["gn"],
-                              f"groupnorm_stitch level {level} C={C} {dtype} exact={exact}")
-                # time the kernel and its plain version on identical stats
-                mean_c = torch.randn(P, C, generator=gen).to(dev)
-                rstd_c = torch.rand(P, C, generator=gen).to(dev) + 0.5
-                nb = torch.as_tensor(csp.neighbors, dtype=torch.int32, device=dev)
-                ms = cuda_ms(lambda: groupnorm_stitch(patches, nb, mean_c, rstd_c,
-                                                      scale, bias))
-                plain = cuda_ms(lambda: ref_groupnorm_stitch(patches, nb, mean_c, rstd_c,
-                                                             scale, bias))
+                what = f"groupnorm_stitch level {level} C={C} {dtype} exact={exact}"
+                err = max(max_err(got, want, TOL[dtype]["gn"], what),
+                          max_err(got, plain(), TOL[dtype]["gn"], what + " (plain)"))
+                ms = cuda_ms(whole)
+                plain_ms = cuda_ms(plain)
+                stitch_ms = cuda_ms(lambda exact=exact: gn_stitch(
+                    patches, part, meta.neighbors_i32, meta.patch_req_i32,
+                    meta.request_offset_i32, scale, bias, exact=exact))
                 es = patches.element_size()
-                n_bytes = (P * p * p * C * es + P * (p + 2) ** 2 * C * es
-                           + 2 * P * C * 4 + 2 * C * 4 + P * 8 * 4)
-                bms, by = bound_ms(n_bytes, 4 * P * (p + 2) ** 2 * C, dtype)
+                # each input read once (patches, scale, bias, CSP metadata), the tiles written once
+                n_bytes = (P * p * p * C * es + P * (p + 2) ** 2 * C * es + 2 * C * 4
+                           + meta.neighbors_i32.nbytes + meta.patch_req_i32.nbytes
+                           + meta.request_offset_i32.nbytes)
+                # statistics: add, multiply, add per input element; normalise + affine: 4 per output
+                bms, by = bound_ms(n_bytes, 3 * P * p * p * C + 4 * P * (p + 2) ** 2 * C, dtype)
                 row = dict(level=level, P=P, p=p, C=C, dtype=str(dtype).split(".")[1],
-                           exact=exact, max_abs_err=err, ms=ms, plain_ms=plain,
-                           bound_ms=bms, bound_by=by, library_ms=None)
+                           exact=exact, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bms, bound_by=by, library_ms=None,
+                           partials_ms=partials_ms, stitch_ms=stitch_ms,
+                           partials_max_abs_err=part_err)
                 results["groupnorm_stitch"].append(row)
                 log(f"[gn_stitch] {json.dumps(row)}")
     # attention at the UNet's level-1 sequences (D=32) and SD3-lite's (D=16);
@@ -240,6 +273,16 @@ def phase_kernels(dev) -> dict:
 def reset_launches() -> None:
     for fn, _, _ in KERNELS.values():
         fn.launches = 0
+    for fn in GN_KERNELS:
+        fn.launches = 0
+
+
+def check_gn_kernels() -> None:
+    """Each counted GroupNorm+stitch call launched both of its kernels."""
+    n = [fn.launches for fn in GN_KERNELS]
+    if n != [groupnorm_stitch.launches] * 2:
+        raise RuntimeError(f"gn_partials/gn_stitch launches {n} for "
+                           f"{groupnorm_stitch.launches} groupnorm_stitch calls")
 
 
 def launches() -> dict:
@@ -260,7 +303,9 @@ def timed_step(fn) -> tuple:
 
 
 def profile_step(fn, n: int = 3) -> None:
-    """Device time by kernel over ``n`` warm calls, and the device busy share."""
+    """Device time by kernel over ``n`` warm calls, the device busy share, and
+    per step: device ops, the GroupNorm+stitch path's device time, memsets,
+    host-to-device copies and stream synchronises."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -279,12 +324,24 @@ def profile_step(fn, n: int = 3) -> None:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"[profile]   {us / 1e3 / n:9.4f} ms/step  {100 * us / busy_us:5.1f}%  {name[:110]}")
-    for kernel in ("gn_stitch_kernel", "patch_attention_kernel", "patch_attention_combine"):
+    for kernel in ("gn_partials_kernel", "gn_stitch_kernel", "patch_attention_kernel",
+                   "patch_attention_combine"):
         us = sum(t for name, t in by_name.items() if kernel in name)
         log(f"[profile] {kernel}: {us / 1e3 / n:.4f} ms/step, {100 * us / busy_us:.2f}%")
     us = sum(t for name, t in by_name.items() if "patch_attention_" in name)
     log(f"[profile] attention (kernel + combine): {us / 1e3 / n:.4f} ms/step, "
         f"{100 * us / busy_us:.2f}% of device time")
+    us = sum(t for name, t in by_name.items()
+             if "gn_partials_kernel" in name or "gn_stitch_kernel" in name)
+    memset = [e for e in kernels if e.name.startswith("Memset")]
+    log(f"[profile] GroupNorm+stitch path (gn_partials_kernel + gn_stitch_kernel): "
+        f"{us / 1e3 / n:.4f} ms/step, {100 * us / busy_us:.2f}% of device time; memsets "
+        f"{len(memset) / n:.1f}/step, {sum(e.device_time for e in memset) / 1e3 / n:.4f} ms/step")
+    names = [e.name for e in prof.events()]
+    h2d = sum(1 for e in kernels if e.name.startswith("Memcpy HtoD"))
+    log(f"[profile] per step: {len(kernels) / n:.1f} device ops, {h2d / n:.1f} host-to-device "
+        f"copies, {names.count('cudaMemcpyAsync') / n:.1f} cudaMemcpyAsync, "
+        f"{names.count('cudaStreamSynchronize') / n:.1f} cudaStreamSynchronize")
 
 
 def phase_step(dev) -> None:
@@ -308,6 +365,7 @@ def phase_step(dev) -> None:
             if use and n != per_step:
                 raise RuntimeError(f"{cfg.name}: {n} kernel launches per step, "
                                    f"expected {per_step}")
+            check_gn_kernels()
             ms[use] = min(timed_step(step)[1] for _ in range(3))
         err = max_err(outs[True], outs[False], 1e-3, f"{cfg.name} sampler_step")
         log(f"[step] {cfg.name} res={res} P={csp.total} p={csp.patch} kernel launches/step="
@@ -365,6 +423,7 @@ def phase_serve(dev) -> dict:
         if not use_cache:
             if min(counts.values()) <= 0:
                 raise RuntimeError(f"a kernel was not launched on the main path: {counts}")
+            check_gn_kernels()
             main_launches = counts
         del eng
         torch.cuda.empty_cache()

@@ -22,13 +22,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.csp import CSP
+from repro_torch.core.csp_device import csp_device
 from repro_torch.core.patching import group_images, ungroup_images
 from repro_torch.core.stitcher import gather_halo
 
 
 def patch_request_index(csp: CSP, device: torch.device) -> torch.Tensor:
-    """(P,) int64 request index of every patch, on ``device``."""
-    return torch.as_tensor(csp.patch_req, device=device)
+    """(P,) int64 request index of every patch, on ``device`` (cached)."""
+    return csp_device(csp, device).patch_req
 
 
 def conv_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
@@ -49,12 +50,12 @@ def csp_group_stats(csp: CSP, patches: torch.Tensor, groups: int):
     P, p, _, C = patches.shape
     G = groups
     x = patches.float().reshape(P, p * p, G, C // G)
-    seg = patch_request_index(csp, patches.device)
+    meta = csp_device(csp, patches.device)
     zeros = torch.zeros(csp.n_requests, G, device=patches.device)
-    s1 = zeros.index_add(0, seg, x.sum(dim=(1, 3)))                 # (R, G)
-    s2 = zeros.index_add(0, seg, (x * x).sum(dim=(1, 3)))
-    cnt = (torch.as_tensor(csp.res[:, 0] * csp.res[:, 1], dtype=torch.float32,
-                           device=patches.device) * (C // G))[:, None]  # (R, 1)
+    s1 = zeros.index_add(0, meta.patch_req, x.sum(dim=(1, 3)))      # (R, G)
+    s2 = zeros.index_add(0, meta.patch_req, (x * x).sum(dim=(1, 3)))
+    # a request's pixels: its patches times p*p (= H*W at this level)
+    cnt = ((meta.counts * (p * p)).float() * (C // G))[:, None]     # (R, 1)
     mean = s1 / cnt
     var = torch.clamp(s2 / cnt - mean * mean, min=0.0)
     return mean, var                                                # (R, G) each
@@ -96,7 +97,8 @@ def patched_conv(csp: CSP, patches: Optional[torch.Tensor], w: torch.Tensor,
         out = patches @ w[0, 0]
         return out + b if b is not None else out
     halo = kh // 2
-    x = haloed if haloed is not None else gather_halo(patches, csp.neighbors, halo)
+    x = haloed if haloed is not None else gather_halo(
+        patches, csp_device(csp, patches.device).neighbors, halo)
     out = conv_nhwc(x, w)
     return out + b if b is not None else out
 

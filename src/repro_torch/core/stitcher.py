@@ -13,7 +13,9 @@ import torch
 
 
 def _neighbor_index(neighbors, device: torch.device) -> torch.Tensor:
-    """(P, 8) numpy array or tensor -> int64 tensor on ``device``."""
+    """(P, 8) numpy array or tensor -> int64 tensor on ``device``. The model
+    passes the CSP's cached device copy (``core.csp_device``), which comes
+    back as it is, with no copy; a numpy array is copied on every call."""
     return torch.as_tensor(neighbors, device=device).long()
 
 

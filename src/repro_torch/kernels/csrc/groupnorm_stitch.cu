@@ -1,31 +1,51 @@
-// Fused GroupNorm + patch-edge stitch for Hopper (sm_90a), paper section 4.3.
+// Fused GroupNorm + patch-edge stitch for Hopper (sm_90a), paper section 4.3:
+// the statistics and the normalise-and-stitch pass, as two kernels.
 //
 // Replaces the TPU kernel src/repro/kernels/groupnorm_stitch.py:_kernel
-// (called through groupnorm_stitch), which ran one Pallas program per patch.
+// (called through groupnorm_stitch) together with the statistics that its
+// caller, src/repro/kernels/ops.py:fused_groupnorm_stitch, computed for it.
 //
 // What it computes. For patch i of a CSP batch (P, p, p, C) NHWC, write the
 // (p+2h, p+2h, C) tile that a VALID 3x3 conv reads: the centre is patch i, the
 // eight border strips come from neighbors[i, slot] (slot order N, S, W, E, NW,
-// NE, SW, SE). Every element is normalised with the per-channel mean/rstd of
-// the patch it was read from, then the affine scale/bias is applied. An
-// absent neighbour (-1) gives 0 after normalisation (the conv's zero padding).
+// NE, SW, SE). Every element is normalised with the mean and rstd of its
+// channel group in the patch it was read from, then the affine scale/bias is
+// applied. An absent neighbour (-1) gives 0 after normalisation (the conv's
+// zero padding). Statistics are per (request, group) over all the request's
+// patches (exact mode) or per (patch, group) (per-patch mode, the paper's
+// approximation), with the reference's variance max(s2/cnt - mean^2, 0).
 //
 // What bounds it on the H100. Four flops per element against 8 bytes (fp32
-// in + out), so it is bound by device-memory bytes (3.35 TB/s), far below the
-// ridge point. The least traffic is one read of the patches and one write of
-// the haloed tiles.
+// in + out), so device-memory bytes (3.35 TB/s), far below the ridge point.
+// The least traffic is one read of the patches and one write of the tiles.
 //
-// What the design does about that. A pull design: the grid is (patch, part
-// of the tile); each thread owns VEC consecutive channels of one output pixel,
-// picks the source patch from its (row, col), and moves them with one 16-byte
-// (fp32) or 8-byte (bf16) access, channel index fastest, so warps read and
-// write whole NHWC lines. Halo strips re-read neighbour lines that the
-// neighbour's own block also reads; those reads mostly hit L2. Stats,
-// scale and bias are a few KB and stay in L1/L2. Arithmetic is fp32 for
-// both storage types.
+// What the design does about that. The TPU kernel took the statistics as an
+// input, because its grid ran in order on one core; the caller made them
+// with about twenty small ops and host copies. Here the function is two
+// launches, with nothing between them on the host:
+// 1. gn_partials_kernel reads the patches once with 16-byte loads and writes
+//    fp32 (sum x, sum x^2) per (patch, group) into (P, G, 2) partials. A
+//    patch's pixels are split over a thread block cluster of up to 8 blocks,
+//    so that even a level-1 launch (P=29, p=16) spreads over the SMs; the
+//    blocks of a cluster combine their sums in rank 0's shared memory through
+//    distributed shared memory, so the partials need no zeroing and no
+//    global atomics.
+// 2. gn_stitch_kernel finalises, in its prologue, the mean/rstd it needs into
+//    shared memory: in exact mode the request's (CSP neighbours never cross a
+//    request, so one set serves the whole tile), in per-patch mode the
+//    patch's own and its eight neighbours'. Its body is a pull: the grid is
+//    (patch, part of the tile); each thread owns VEC consecutive channels of
+//    one output pixel, picks the source patch from its (row, col), and moves
+//    them with one 16-byte access, channel index fastest, so warps read and
+//    write whole NHWC lines. Its reads of the patches, and the halo re-reads,
+//    mostly hit the 50 MB L2, where kernel 1 (and on the main path the
+//    producer of the patches) left them. Arithmetic is fp32 for both types.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -44,19 +64,171 @@ struct alignas(sizeof(T) * VEC) Vec {
   T v[VEC];
 };
 
+// Channels per 16-byte access.
+template <typename T> constexpr int kVec = 16 / sizeof(T);
+
 // (dr + 1) * 3 + (dc + 1) -> neighbour slot; -1 is the patch itself.
 __constant__ int kSlot[9] = {4, 0, 5, 2, -1, 3, 6, 1, 7};
 
 constexpr int kThreads = 256;
-constexpr int kItemsPerThread = 4;
+constexpr int kBlocksPerSm = 4;      // stitch grid target
+constexpr int kMaxStitchItems = 4;   // output vectors a stitch thread writes, at most
+constexpr int kMaxCluster = 8;       // partials blocks per patch, at most (portable size)
+constexpr int kMinStatLoads = 2;     // vector loads a partials thread makes, at least
+
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }();
+  return n;
+}
+
+// Output vectors per stitch thread that fill the card with kBlocksPerSm
+// blocks per SM, clamped to [1, most].
+int items_per_thread(long long work, int most) {
+  const long long target = (long long)sm_count() * kBlocksPerSm * kThreads;
+  const long long items = work / target;
+  return items < 1 ? 1 : (items > most ? most : (int)items);
+}
+
+// Grid: one thread block cluster of `cs` blocks per patch, each block an even
+// share of the patch's pixels. A block's threads read `cvb` channel vectors of
+// `rows` pixels side by side (looping over channel chunks when C/VEC exceeds
+// the block), keep per-channel sums in registers, and add them per group into
+// the block's shared (G, 2) sums. Every other block then writes its sums into
+// its slot of rank 0's shared memory, and rank 0 adds the slots in rank order
+// and stores the patch's partials.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+gn_partials_kernel(const T* __restrict__ x, float* __restrict__ part, int p, int C, int G) {
+  // acc: (G, 2) this block's sum x, sum x^2; then, in rank 0, (cs, G, 2) every block's
+  extern __shared__ float acc[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int i = blockIdx.x / cs;
+  // first half of a cluster barrier: rank 0 has started (its shared memory
+  // exists) by the time the wait below returns
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  for (int t = threadIdx.x; t < 2 * G; t += kThreads) acc[t] = 0.f;
+  __syncthreads();
+  const int cv = C / VEC;
+  const int cvb = cv < kThreads ? cv : kThreads;
+  const int rows = kThreads / cvb;
+  const int lane = threadIdx.x % cvb;
+  const int row = threadIdx.x / cvb;
+  const int npix = p * p;
+  const int px0 = (int)((long long)npix * rank / cs);
+  const int px1 = (int)((long long)npix * (rank + 1) / cs);
+  const int cpg = C / G;
+  const T* src = x + (long long)i * npix * C;
+  for (int cb = 0; row < rows && cb + lane < cv; cb += cvb) {
+    const int c = (cb + lane) * VEC;
+    float s1[VEC], s2[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) s1[k] = s2[k] = 0.f;
+#pragma unroll 4
+    for (int px = px0 + row; px < px1; px += rows) {
+      const Vec<T, VEC> v = *reinterpret_cast<const Vec<T, VEC>*>(src + (long long)px * C + c);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const float f = to_f32(v.v[k]);
+        s1[k] += f;
+        s2[k] += f * f;
+      }
+    }
+    if (cpg % VEC == 0) {                       // the vector lies in one group
+      float a = 0.f, b = 0.f;
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        a += s1[k];
+        b += s2[k];
+      }
+      atomicAdd(acc + 2 * (c / cpg), a);
+      atomicAdd(acc + 2 * (c / cpg) + 1, b);
+    } else {
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        atomicAdd(acc + 2 * ((c + k) / cpg), s1[k]);
+        atomicAdd(acc + 2 * ((c + k) / cpg) + 1, s2[k]);
+      }
+    }
+  }
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  // every block but rank 0 copies its sums into rank 0's slot for it
+  float* slot = cluster.map_shared_rank(acc, 0) + rank * 2 * G;
+  if (rank != 0) {
+    for (int t = threadIdx.x; t < 2 * G; t += kThreads) slot[t] = acc[t];
+  }
+  cluster.sync();                               // all slots are filled and visible
+  if (rank == 0) {
+    for (int t = threadIdx.x; t < 2 * G; t += kThreads) {
+      float s = 0.f;
+      for (int r = 0; r < cs; ++r) s += acc[r * 2 * G + t];
+      part[(long long)i * 2 * G + t] = s;
+    }
+  }
+}
+
+__device__ __forceinline__ void finalise(float s1, float s2, float cnt, float eps,
+                                         float* mean, float* rstd) {
+  const float mu = s1 / cnt;
+  *mean = mu;
+  *rstd = rsqrtf(fmaxf(s2 / cnt - mu * mu, 0.f) + eps);
+}
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-gn_stitch_kernel(const T* __restrict__ x, const int* __restrict__ nbr,
-                 const float* __restrict__ mean, const float* __restrict__ rstd,
-                 const float* __restrict__ scale, const float* __restrict__ bias,
-                 T* __restrict__ out, int p, int C, int halo) {
+gn_stitch_kernel(const T* __restrict__ x, const float* __restrict__ part,
+                 const int* __restrict__ nbr, const int* __restrict__ patch_req,
+                 const int* __restrict__ req_off, const float* __restrict__ scale,
+                 const float* __restrict__ bias, T* __restrict__ out, int p, int C, int G,
+                 int halo, int exact, float eps) {
+  extern __shared__ float st[];   // mean, then rstd: [sets][G] each, sets 1 or 9
   const int i = blockIdx.x;
+  const int sets = exact ? 1 : 9;
+  float* s_mean = st;
+  float* s_rstd = st + sets * G;
+  const int cpg = C / G;
+  if (exact) {
+    // the request's sums over its patches [lo, hi): one warp per group
+    const int r = patch_req[i];
+    const int lo = req_off[r], hi = req_off[r + 1];
+    const float cnt = (float)((long long)(hi - lo) * p * p * cpg);
+    const int lane = threadIdx.x % 32;
+    for (int g = threadIdx.x / 32; g < G; g += kThreads / 32) {
+      float a = 0.f, b = 0.f;
+      for (int q = lo + lane; q < hi; q += 32) {
+        a += part[((long long)q * G + g) * 2];
+        b += part[((long long)q * G + g) * 2 + 1];
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, off);
+        b += __shfl_xor_sync(0xffffffffu, b, off);
+      }
+      if (lane == 0) finalise(a, b, cnt, eps, s_mean + g, s_rstd + g);
+    }
+  } else {
+    // set s < 8: neighbour slot s; set 8: the patch itself
+    const float cnt = (float)(p * p * cpg);
+    for (int t = threadIdx.x; t < 9 * G; t += kThreads) {
+      const int s = t / G, g = t - s * G;
+      const int src = s == 8 ? i : nbr[i * 8 + s];
+      s_mean[t] = 0.f;
+      s_rstd[t] = 0.f;
+      if (src >= 0) {
+        const float* ps = part + ((long long)src * G + g) * 2;
+        finalise(ps[0], ps[1], cnt, eps, s_mean + t, s_rstd + t);
+      }
+    }
+  }
+  __syncthreads();
+
   const int w2 = p + 2 * halo;
   const int cv = C / VEC;                   // channel vectors per pixel
   const int total = w2 * w2 * cv;
@@ -80,60 +252,135 @@ gn_stitch_kernel(const T* __restrict__ x, const int* __restrict__ nbr,
       const int sc = cc - dc * p;
       const Vec<T, VEC> xv = *reinterpret_cast<const Vec<T, VEC>*>(
           x + (((long long)src * p + sr) * p + sc) * C + c);
-      const float* mu = mean + (long long)src * C + c;
-      const float* rs = rstd + (long long)src * C + c;
+      const int set = exact ? 0 : (slot < 0 ? 8 : slot);
+      const float* mu = s_mean + set * G;
+      const float* rs = s_rstd + set * G;
+      int g = c / cpg, gr = c - g * cpg;     // group of channel c + k, and c + k's place in it
 #pragma unroll
       for (int k = 0; k < VEC; ++k) {
-        o.v[k] = from_f32<T>((to_f32(xv.v[k]) - mu[k]) * rs[k] * scale[c + k] + bias[c + k]);
+        o.v[k] = from_f32<T>((to_f32(xv.v[k]) - mu[g]) * rs[g] * scale[c + k] + bias[c + k]);
+        if (++gr == cpg) {
+          gr = 0;
+          ++g;
+        }
       }
     }
     *reinterpret_cast<Vec<T, VEC>*>(tile + (long long)pix * C + c) = o;
   }
 }
 
+// The 16-byte path needs C % kVec == 0 and 16-byte aligned tensors.
 template <typename T>
-cudaError_t launch(const void* x, const void* nbr, const void* mean, const void* rstd,
-                   const void* scale, const void* bias, void* out, int P, int p, int C,
-                   int halo, void* stream) {
-  if (P <= 0 || p <= 0 || C <= 0 || halo < 0 || halo > p) return cudaErrorInvalidValue;
+bool vectorised(int C, const void* a, const void* b) {
+  return C % kVec<T> == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(b) % 16 == 0;
+}
+
+template <typename T, int VEC>
+cudaError_t launch_partials_vec(const T* x, float* part, int P, int p, int C, int G,
+                                cudaStream_t s) {
+  // the largest cluster that still gives each thread kMinStatLoads vector loads
+  const long long loads = (long long)p * p * (C / VEC);
+  int cs = 1;
+  while (cs < kMaxCluster && loads >= 2LL * cs * kThreads * kMinStatLoads) cs *= 2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(P * cs);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = sizeof(float) * 2 * G * cs;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, gn_partials_kernel<T, VEC>, x, part, p, C, G);
+}
+
+template <typename T>
+cudaError_t launch_partials(const void* x, void* part, int P, int p, int C, int G,
+                            void* stream) {
+  if (P <= 0 || p <= 0 || C <= 0 || G <= 0 || C % G != 0 ||
+      2 * G * kMaxCluster * sizeof(float) > 48 * 1024)
+    return cudaErrorInvalidValue;
+  const T* xt = static_cast<const T*>(x);
+  float* pt = static_cast<float*>(part);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int V = kVec<T>;
+  cudaError_t err = vectorised<T>(C, x, x) ? launch_partials_vec<T, V>(xt, pt, P, p, C, G, s)
+                                           : launch_partials_vec<T, 1>(xt, pt, P, p, C, G, s);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_stitch(const void* x, const void* part, const void* nbr,
+                          const void* patch_req, const void* req_off, const void* scale,
+                          const void* bias, void* out, int P, int p, int C, int G, int halo,
+                          int exact, float eps, void* stream) {
+  if (P <= 0 || p <= 0 || C <= 0 || G <= 0 || C % G != 0 || halo < 0 || halo > p)
+    return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * 2 * (exact ? 1 : 9) * (size_t)G;
+  if (smem > 48 * 1024) return cudaErrorInvalidValue;
   const int w2 = p + 2 * halo;
-  const uintptr_t align = sizeof(T) * 4;
-  const bool vec = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % align == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % align == 0;
-  const int per_patch = w2 * w2 * (vec ? C / 4 : C);
-  int parts = (per_patch + kThreads * kItemsPerThread - 1) / (kThreads * kItemsPerThread);
+  const bool vec = vectorised<T>(C, x, out);
+  const long long per_patch = (long long)w2 * w2 * (vec ? C / kVec<T> : C);
+  const int items = items_per_thread(P * per_patch, kMaxStitchItems);
+  long long parts = (per_patch + (long long)kThreads * items - 1) / ((long long)kThreads * items);
   if (parts > 65535) parts = 65535;
-  const dim3 grid(P, parts);
+  const dim3 grid(P, (unsigned)parts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
+  const float* pt = static_cast<const float*>(part);
   const int* nb = static_cast<const int*>(nbr);
-  const float* mu = static_cast<const float*>(mean);
-  const float* rs = static_cast<const float*>(rstd);
+  const int* pr = static_cast<const int*>(patch_req);
+  const int* ro = static_cast<const int*>(req_off);
   const float* sc = static_cast<const float*>(scale);
   const float* bi = static_cast<const float*>(bias);
+  constexpr int V = kVec<T>;
   if (vec) {
-    gn_stitch_kernel<T, 4><<<grid, kThreads, 0, s>>>(xt, nb, mu, rs, sc, bi, ot, p, C, halo);
+    gn_stitch_kernel<T, V><<<grid, kThreads, smem, s>>>(
+        xt, pt, nb, pr, ro, sc, bi, ot, p, C, G, halo, exact, eps);
   } else {
-    gn_stitch_kernel<T, 1><<<grid, kThreads, 0, s>>>(xt, nb, mu, rs, sc, bi, ot, p, C, halo);
+    gn_stitch_kernel<T, 1><<<grid, kThreads, smem, s>>>(
+        xt, pt, nb, pr, ro, sc, bi, ot, p, C, G, halo, exact, eps);
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// patches (P,p,p,C) contiguous; neighbors (P,8) int32; mean/rstd (P,C) fp32;
-// scale/bias (C,) fp32; out (P,p+2h,p+2h,C) contiguous, same type as patches.
-extern "C" cudaError_t ps_groupnorm_stitch_f32(const void* x, const void* nbr, const void* mean,
-                                               const void* rstd, const void* scale,
-                                               const void* bias, void* out, int P, int p,
-                                               int C, int halo, void* stream) {
-  return launch<float>(x, nbr, mean, rstd, scale, bias, out, P, p, C, halo, stream);
+// Kernel 1. patches (P,p,p,C) contiguous; part (P,G,2) fp32, written with
+// (sum x, sum x^2) per (patch, group).
+extern "C" cudaError_t ps_gn_partials_f32(const void* x, void* part, int P, int p, int C,
+                                          int G, void* stream) {
+  return launch_partials<float>(x, part, P, p, C, G, stream);
 }
 
-extern "C" cudaError_t ps_groupnorm_stitch_bf16(const void* x, const void* nbr, const void* mean,
-                                                const void* rstd, const void* scale,
-                                                const void* bias, void* out, int P, int p,
-                                                int C, int halo, void* stream) {
-  return launch<__nv_bfloat16>(x, nbr, mean, rstd, scale, bias, out, P, p, C, halo, stream);
+extern "C" cudaError_t ps_gn_partials_bf16(const void* x, void* part, int P, int p, int C,
+                                           int G, void* stream) {
+  return launch_partials<__nv_bfloat16>(x, part, P, p, C, G, stream);
+}
+
+// Kernel 2. patches (P,p,p,C) contiguous; part (P,G,2) fp32 from kernel 1;
+// neighbors (P,8), patch_req (P,) and request_offset (R+1,) int32; scale/bias
+// (C,) fp32; out (P,p+2h,p+2h,C) contiguous, same type as patches. exact != 0:
+// per-request statistics, else per-patch.
+extern "C" cudaError_t ps_gn_stitch_f32(const void* x, const void* part, const void* nbr,
+                                        const void* patch_req, const void* req_off,
+                                        const void* scale, const void* bias, void* out,
+                                        int P, int p, int C, int G, int halo, int exact,
+                                        float eps, void* stream) {
+  return launch_stitch<float>(x, part, nbr, patch_req, req_off, scale, bias, out, P, p, C, G,
+                              halo, exact, eps, stream);
+}
+
+extern "C" cudaError_t ps_gn_stitch_bf16(const void* x, const void* part, const void* nbr,
+                                         const void* patch_req, const void* req_off,
+                                         const void* scale, const void* bias, void* out,
+                                         int P, int p, int C, int G, int halo, int exact,
+                                         float eps, void* stream) {
+  return launch_stitch<__nv_bfloat16>(x, part, nbr, patch_req, req_off, scale, bias, out, P,
+                                      p, C, G, halo, exact, eps, stream);
 }

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.patched_ops import csp_group_stats, patch_request_index
+from repro_torch.core.csp_device import csp_device
 from repro_torch.kernels.groupnorm_stitch import groupnorm_stitch
 from repro_torch.kernels.patch_attention import patch_attention
 
@@ -13,26 +13,14 @@ def fused_groupnorm_stitch(csp, patches: torch.Tensor, scale: torch.Tensor,
                            exact: bool = True, halo: int = 1) -> torch.Tensor:
     """CSP-aware fused GroupNorm + edge stitch.
 
-    Phase 1 (plain torch): exact per-request stats by segment sum, or per-patch
-    stats with exact=False (the paper's approximation). Phase 2 (the kernel):
-    normalize + halo in one pass."""
-    P, p, _, C = patches.shape
-    G = groups
-    patches = patches.contiguous()
-    if exact:
-        mean, var = csp_group_stats(csp, patches, groups)          # (R, G)
-        seg = patch_request_index(csp, patches.device)
-        mean_p, var_p = mean[seg], var[seg]                        # (P, G)
-    else:
-        x = patches.float().reshape(P, p * p, G, C // G)
-        mean_p = x.mean(dim=(1, 3))
-        var_p = torch.square(x - mean_p[:, None, :, None]).mean(dim=(1, 3))
-    rstd_p = torch.rsqrt(var_p + eps)
-    mean_c = mean_p.repeat_interleave(C // G, dim=-1)              # (P, C)
-    rstd_c = rstd_p.repeat_interleave(C // G, dim=-1)
-    neighbors = torch.as_tensor(csp.neighbors, dtype=torch.int32, device=patches.device)
-    return groupnorm_stitch(patches, neighbors, mean_c, rstd_c,
-                            scale.float().contiguous(), bias.float().contiguous(),
+    Exact per-request statistics, or per-patch ones with exact=False (the
+    paper's approximation), then normalize + halo. On the card: two kernel
+    launches (partial sums, then the stitch, whose prologue finalizes the
+    statistics) on the CSP's cached device metadata, no host round trip."""
+    meta = csp_device(csp, patches.device)
+    return groupnorm_stitch(patches.contiguous(), meta.neighbors_i32, meta.patch_req_i32,
+                            meta.request_offset_i32, scale.float().contiguous(),
+                            bias.float().contiguous(), groups, eps=eps, exact=exact,
                             halo=halo)
 
 

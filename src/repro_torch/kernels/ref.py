@@ -14,6 +14,35 @@ from repro_torch.core.stitcher import gather_halo
 BLOCK_K = 64
 
 
+def ref_gn_partials(patches, groups: int):
+    """(P, p, p, C) -> (P, G, 2) fp32 (sum x, sum x^2) per patch and channel
+    group: the partials kernel."""
+    P, p, _, C = patches.shape
+    x = patches.float().reshape(P, p * p, groups, C // groups)
+    return torch.stack([x.sum(dim=(1, 3)), (x * x).sum(dim=(1, 3))], dim=-1)
+
+
+def ref_gn_finalize(partials, patch_req, request_offset, p: int, C: int,
+                    eps: float = 1e-5, exact: bool = True):
+    """(P, G, 2) partials -> per-patch (P, G) mean and rstd, as the stitch
+    kernel's prologue makes them: from the sums of the patch's request
+    (exact) or of the patch itself, with the reference's variance
+    max(s2/cnt - mean^2, 0) (``core.patched_ops.csp_group_stats``)."""
+    G = partials.shape[1]
+    n_pix = p * p * (C // G)                       # elements of a patch and group
+    if exact:
+        seg = patch_req.long()
+        n = (request_offset[1:] - request_offset[:-1]).long()
+        sums = torch.zeros((len(n), G, 2), device=partials.device).index_add(
+            0, seg, partials)[seg]
+        cnt = (n[seg] * n_pix).float()[:, None]
+    else:
+        sums, cnt = partials, float(n_pix)
+    mean = sums[..., 0] / cnt
+    var = torch.clamp(sums[..., 1] / cnt - mean * mean, min=0.0)
+    return mean, torch.rsqrt(var + eps)
+
+
 def ref_groupnorm_stitch(patches, neighbors, mean_c, rstd_c, scale, bias,
                          halo: int = 1):
     """Normalize (per-patch per-channel stats) then halo-gather."""

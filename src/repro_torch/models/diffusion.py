@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import patched_ops
 from repro_torch.core.csp import CSP
+from repro_torch.core.csp_device import csp_device
 from repro_torch.core.patching import merge, split
 from repro_torch.core.patched_ops import conv_nhwc, patch_request_index
 from repro_torch.core.stitcher import gather_halo
@@ -176,7 +177,7 @@ def _gn_stitch(cfg: DiffusionConfig, csp: CSP, x: torch.Tensor, gp) -> torch.Ten
                                       cfg.groups, exact=cfg.exact_stats)
     n = patched_ops.patched_groupnorm(csp, x, gp["scale"], gp["bias"],
                                       cfg.groups, exact=cfg.exact_stats)
-    return gather_halo(n, csp.neighbors)
+    return gather_halo(n, csp_device(csp, n.device).neighbors)
 
 
 def _res_block(cfg, csp: CSP, p, x: torch.Tensor, temb_p: torch.Tensor) -> torch.Tensor:
@@ -252,7 +253,7 @@ def _downsample(csp: CSP, p, x: torch.Tensor) -> torch.Tensor:
     even sizes): windows start on even global rows, so only the right/bottom
     halo participates — drop the left/top halo row+col.
     """
-    h = gather_halo(x, csp.neighbors)[:, 1:, 1:, :]
+    h = gather_halo(x, csp_device(csp, x.device).neighbors)[:, 1:, 1:, :]
     return conv_nhwc(h, p["w"], stride=2) + p["b"]
 
 

@@ -23,7 +23,9 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.patch_attention import patch_attention as jattn  # noqa: E402
 from repro_torch.core.patching import split as tsplit  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.kernels.groupnorm_stitch import groupnorm_stitch  # noqa: E402
+from repro_torch.core.csp_device import csp_device  # noqa: E402
+from repro_torch.kernels.groupnorm_stitch import (  # noqa: E402
+    gn_partials, gn_stitch, groupnorm_stitch)
 from repro_torch.kernels.patch_attention import patch_attention  # noqa: E402
 
 GN_SWEEP = [  # tests/test_kernels.py::test_groupnorm_stitch_sweep
@@ -31,6 +33,13 @@ GN_SWEEP = [  # tests/test_kernels.py::test_groupnorm_stitch_sweep
     ([(16, 16), (32, 32)], 16, 4, "float32"),
     ([(24, 24), (16, 16), (32, 32)], 8, 2, "float32"),
     ([(16, 16), (24, 24)], 16, 8, "bfloat16"),
+]
+# the main path's three-request CSP (chip_smoke.py's 512/768/1024-pixel
+# requests) at level 0 (p=32) and level 1 (p=16), at C=64 and G=8
+CHIP_SWEEP = [
+    ([(64, 64), (96, 96), (128, 128)], 64, 8, "float32"),
+    ([(32, 32), (48, 48), (64, 64)], 64, 8, "float32"),
+    ([(32, 32), (48, 48), (64, 64)], 64, 8, "bfloat16"),
 ]
 ATTN_SWEEP = [  # tests/test_kernels.py::test_patch_attention_sweep
     (2, 100, 4, 32, "float32"),
@@ -55,7 +64,7 @@ def _gn_inputs(res, C, dtype, seed=0):
     return jc, jp, tc, tp, scale, bias
 
 
-@pytest.mark.parametrize("res,C,G,dtype", GN_SWEEP)
+@pytest.mark.parametrize("res,C,G,dtype", GN_SWEEP + CHIP_SWEEP)
 @pytest.mark.parametrize("exact", [True, False])
 def test_fused_groupnorm_stitch_matches_reference(res, C, G, dtype, exact):
     """The port's entry point against the reference's plain composite
@@ -71,6 +80,33 @@ def test_fused_groupnorm_stitch_matches_reference(res, C, G, dtype, exact):
     tol = _tol(dtype, 2e-2)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("res,C,G,dtype", GN_SWEEP + CHIP_SWEEP)
+@pytest.mark.parametrize("exact", [True, False])
+def test_plain_partials_and_finalize_match_reference_stats(res, C, G, dtype, exact):
+    """Partials then finalise, as the two kernels split the statistics,
+    against the reference's per-patch mean and rstd: csp_group_stats of the
+    patch's request (exact), or the patch's own mean and population variance
+    (exact=False, as ops.fused_groupnorm_stitch makes them)."""
+    jc, jp, tc, tp, _, _ = _gn_inputs(res, C, dtype, seed=3)
+    P, p = tp.shape[0], tp.shape[1]
+    if exact:
+        jmean, jvar = jops.csp_group_stats(jc, jp, G)
+        seg = np.asarray(jc.patch_req)
+        jmean, jvar = np.asarray(jmean)[seg], np.asarray(jvar)[seg]
+    else:
+        x = jp.astype(jnp.float32).reshape(P, p * p, G, C // G)
+        jmean = np.asarray(jnp.mean(x, axis=(1, 3)))
+        jvar = np.asarray(jnp.mean(jnp.square(x - jmean[:, None, :, None]), axis=(1, 3)))
+    meta = csp_device(tc, "cpu")
+    part = ref.ref_gn_partials(tp, G)
+    assert part.shape == (P, G, 2) and part.dtype == torch.float32
+    mean, rstd = ref.ref_gn_finalize(part, meta.patch_req_i32, meta.request_offset_i32, p, C,
+                                     1e-5, exact)
+    tol = _tol(dtype, 2e-2)
+    np.testing.assert_allclose(mean.numpy(), jmean, rtol=tol, atol=tol)
+    np.testing.assert_allclose(rstd.numpy(), 1 / np.sqrt(jvar + 1e-5), rtol=tol, atol=tol)
 
 
 def test_ref_groupnorm_stitch_matches_reference():
@@ -105,12 +141,14 @@ def test_grouped_attention_matches_pallas_interpret(B, S, H, D, dtype):
 
 
 def test_launch_counters_stay_zero_on_cpu():
-    groupnorm_stitch.launches = patch_attention.launches = 0
+    counted = (gn_partials, gn_stitch, groupnorm_stitch, patch_attention)
+    for fn in counted:
+        fn.launches = 0
     jc, jp, tc, tp, scale, bias = _gn_inputs([(16, 16)], 8, "float32")
     ops.fused_groupnorm_stitch(tc, tp, torch.from_numpy(scale), torch.from_numpy(bias), 4)
     q = torch.randn(1, 16, 2, 8)
     ops.grouped_attention_kernel(q, q, q)
-    assert groupnorm_stitch.launches == 0 and patch_attention.launches == 0
+    assert [fn.launches for fn in counted] == [0, 0, 0, 0]
 
 
 def test_launcher_signatures_match_sources():
@@ -124,6 +162,8 @@ def test_launcher_signatures_match_sources():
     assert {s.name for s in build.sources()} == {"groupnorm_stitch.cu",
                                                  "patch_attention.cu"}
     assert found == {name: len(args) for name, args in build.SIGNATURES.items()}
+    assert {f"ps_gn_{kind}_{t}" for kind in ("partials", "stitch")
+            for t in ("f32", "bf16")} <= set(found)
 
 
 def test_build_hash_covers_sources(tmp_path, monkeypatch):
@@ -174,11 +214,18 @@ def test_wrappers_raise_off_the_cpu_instead_of_falling_back():
     launches the kernel (CUDA) or raises."""
     x = torch.empty(2, 4, 4, 8, device="meta")
     nb = torch.empty(2, 8, dtype=torch.int32, device="meta")
-    stats = torch.empty(2, 8, device="meta")
+    req = torch.empty(2, dtype=torch.int32, device="meta")
+    off = torch.empty(2, dtype=torch.int32, device="meta")
+    part = torch.empty(2, 4, 2, device="meta")
     vec = torch.empty(8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        groupnorm_stitch(x, nb, stats, stats, vec, vec)
+        groupnorm_stitch(x, nb, req, off, vec, vec, 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gn_partials(x, 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gn_stitch(x, part, nb, req, off, vec, vec)
     q = torch.empty(1, 16, 2, 8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         patch_attention(q, q, q)
     assert groupnorm_stitch.launches == 0 and patch_attention.launches == 0
+    assert gn_partials.launches == 0 and gn_stitch.launches == 0

@@ -14,9 +14,11 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import patched_ops as tops  # noqa: E402
 from repro_torch.core import stitcher as tst  # noqa: E402
+from repro_torch.core.csp_device import csp_device  # noqa: E402
 from repro_torch.core.patching import split as tsplit  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.groupnorm_stitch import groupnorm_stitch  # noqa: E402
+from repro_torch.kernels.groupnorm_stitch import (  # noqa: E402
+    gn_partials, gn_stitch, groupnorm_stitch)
 from repro_torch.kernels.patch_attention import patch_attention  # noqa: E402
 
 ATTN_SWEEP = [  # tests/test_kernels.py::test_patch_attention_sweep, plus a main-path S
@@ -42,26 +44,111 @@ def _need_cuda():
         pytest.skip("needs a CUDA card")
 
 
+def _gn_case(res, C, dtype, patch=None, seed=0):
+    rng = np.random.default_rng(seed)
+    imgs = [torch.from_numpy(rng.normal(size=(h, w, C)).astype(np.float32))
+            for h, w in res]
+    tc, tp = tsplit([i.to("cuda", getattr(torch, dtype)) for i in imgs], patch=patch)
+    scale, bias = (torch.from_numpy(rng.normal(size=(C,)).astype(np.float32)).cuda()
+                   for _ in range(2))
+    return tc, tp, scale, bias
+
+
+def _plain_composite(csp, patches, scale, bias, G, exact):
+    return tst.gather_halo(tops.patched_groupnorm(csp, patches, scale, bias, G, exact=exact),
+                           csp_device(csp, patches.device).neighbors)
+
+
+GN_CUDA_CASES = [  # res, C, G, patch
+    ([(32, 32), (48, 48), (64, 64)], 64, 8, None),     # the test's usual CSP (p=16)
+    ([(32, 32), (64, 64), (96, 96)], 64, 8, 32),       # a request of one patch
+    ([(16, 16), (24, 24)], 12, 3, 8),                  # C % 4 != 0: the VEC=1 path
+    ([(16, 16), (32, 32)], 8, 4, 8),                   # groups of 2 channels inside a vector
+    ([(16, 16)], 2048, 32, 16),                        # more channel vectors than threads
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("exact", [True, False])
 def test_groupnorm_stitch_kernel_matches_plain_on_cuda(dtype, exact):
-    """The launch that chip_smoke.py's phase 2 repeats at full size."""
+    """The launch that chip_smoke.py's phase 2 repeats at full size: two
+    kernels for one counted call."""
     _need_cuda()
-    rng = np.random.default_rng(0)
-    imgs = [torch.from_numpy(rng.normal(size=(h, w, 64)).astype(np.float32))
-            for h, w in [(32, 32), (48, 48), (64, 64)]]
-    tc, tp = tsplit([i.to("cuda", getattr(torch, dtype)) for i in imgs])
-    scale, bias = (torch.from_numpy(rng.normal(size=(64,)).astype(np.float32)).cuda()
-                   for _ in range(2))
-    before = groupnorm_stitch.launches
+    tc, tp, scale, bias = _gn_case([(32, 32), (48, 48), (64, 64)], 64, dtype)
+    before = [fn.launches for fn in (gn_partials, gn_stitch, groupnorm_stitch)]
     got = ops.fused_groupnorm_stitch(tc, tp, scale, bias, 8, exact=exact)
     torch.cuda.synchronize()
-    assert groupnorm_stitch.launches == before + 1
-    want = tst.gather_halo(tops.patched_groupnorm(tc, tp, scale, bias, 8, exact=exact),
-                           tc.neighbors)
+    after = [fn.launches for fn in (gn_partials, gn_stitch, groupnorm_stitch)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
     tol = _tol(dtype, 2e-2)
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(got.float(), _plain_composite(tc, tp, scale, bias, 8,
+                                                             exact).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res,C,G,patch", GN_CUDA_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gn_partials_kernel_matches_plain_on_cuda(res, C, G, patch, dtype):
+    _need_cuda()
+    _, tp, _, _ = _gn_case(res, C, dtype, patch)
+    got = gn_partials(tp, G)
+    want = ref.ref_gn_partials(tp, G)
+    torch.cuda.synchronize()
+    # sums of up to p*p*C/G terms in another order, fp32 either way
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res,C,G,patch", GN_CUDA_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("exact", [True, False])
+def test_groupnorm_stitch_shapes_match_plain_on_cuda(res, C, G, patch, dtype, exact):
+    """The whole call against the plain composite (patched_groupnorm +
+    gather_halo), and the stitch kernel alone against the plain finalise +
+    stitch on the same partials."""
+    _need_cuda()
+    tc, tp, scale, bias = _gn_case(res, C, dtype, patch)
+    got = ops.fused_groupnorm_stitch(tc, tp, scale, bias, G, exact=exact)
+    meta = csp_device(tc, tp.device)
+    part = ref.ref_gn_partials(tp, G)
+    alone = gn_stitch(tp, part, meta.neighbors_i32, meta.patch_req_i32,
+                      meta.request_offset_i32, scale, bias, exact=exact)
+    mean, rstd = ref.ref_gn_finalize(part, meta.patch_req_i32, meta.request_offset_i32,
+                                     tp.shape[1], C, 1e-5, exact)
+    plain = ref.ref_groupnorm_stitch(tp, meta.neighbors_i32,
+                                     mean.repeat_interleave(C // G, dim=-1),
+                                     rstd.repeat_interleave(C // G, dim=-1), scale, bias)
+    torch.cuda.synchronize()
+    tol = _tol(dtype, 2e-2)
+    torch.testing.assert_close(got.float(), _plain_composite(tc, tp, scale, bias, G,
+                                                             exact).float(),
+                               rtol=tol, atol=tol)
+    torch.testing.assert_close(alone.float(), plain.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [True, False])
+def test_groupnorm_stitch_is_captured_in_a_cuda_graph(exact):
+    """The whole call, captured: a host copy or a synchronise inside it would
+    fail the capture. The CSP's metadata is uploaded by the warm-up call."""
+    _need_cuda()
+    tc, tp, scale, bias = _gn_case([(32, 32), (48, 48), (64, 64)], 64, "float32")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        want = ops.fused_groupnorm_stitch(tc, tp, scale, bias, 8, exact=exact)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = ops.fused_groupnorm_stitch(tc, tp, scale, bias, 8, exact=exact)
+    tp.add_(torch.rand_like(tp))       # new data in the captured input
+    graph.replay()
+    torch.cuda.synchronize()
+    again = ops.fused_groupnorm_stitch(tc, tp, scale, bias, 8, exact=exact)
+    torch.testing.assert_close(got, again, rtol=1e-4, atol=1e-4)
+    assert not torch.equal(got, want)
 
 
 @pytest.mark.cuda
