@@ -22,7 +22,19 @@ Phases, each of which must pass:
    copies and stream synchronises per step;
 4. the serving engine on SDXL-lite at full width and depth: calibrate, then a
    Poisson workload with the patch cache off (the main path, whose kernel
-   launches are counted) and on, every output image checked.
+   launches are counted) and on, every output image checked;
+5. the fleet: ``repro_torch.cluster.Cluster`` over three replicas whose
+   engines run the real SDXL-lite step under the fleet's sim clock, once with
+   ``resolution_affinity`` (each replica owns one resolution, so its patch is
+   the latent: 64, 96 or 128) and once with ``round_robin`` (every replica
+   has the whole ladder, patch 32), each run's kernel launches counted and
+   every image checked; the GroupNorm+stitch call at the affinity replicas'
+   patch sides (64/96/128 at level 0, 32/48/64 at level 1) against its plain
+   version and timed in a CUDA graph beside its bound; one sampler step per
+   affinity CSP against the plain step; and the paper's two predictors on
+   the card: the latency MLP fitted to measured step latencies of every
+   composition of 0-2 requests per resolution, and the cache-hit model
+   refitted to phase 4's cache samples (both printed, neither a gate).
 
 Every comparison phase runs with TF32 off for cuDNN convs and cuBLAS matmuls.
 The last line is ``{"ok": true, "device": {...}}``; without CUDA, or if any
@@ -31,6 +43,7 @@ phase fails, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import re
 import subprocess
@@ -45,10 +58,14 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.cluster import Cluster, ClusterConfig, sim_engine_factory  # noqa: E402
+from repro_torch.cluster.simtools import cluster_workload  # noqa: E402
 from repro_torch.core.csp_device import csp_device  # noqa: E402
+from repro_torch.core.latency_model import (  # noqa: E402
+    CacheHitModel, fit_cache_hit_model, fit_latency_model, make_features)
 from repro_torch.core.patched_ops import patched_groupnorm  # noqa: E402
 from repro_torch.core.patching import split  # noqa: E402
-from repro_torch.core.requests import poisson_workload  # noqa: E402
+from repro_torch.core.requests import Request, poisson_workload  # noqa: E402
 from repro_torch.core.serving import EngineConfig, PatchedServeEngine  # noqa: E402
 from repro_torch.core.stitcher import gather_halo  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -69,6 +86,9 @@ EXP2_PER_S = 3.9e12                            # 16 ex2/clock/SM x 132 SMs x ~1.
 TOL = {torch.float32: {"gn": 1e-4, "attn": 1e-4},
        torch.bfloat16: {"gn": 2e-2, "attn": 3e-2}}
 CHIP_RES = [(64, 64), (96, 96), (128, 128)]    # 512/768/1024-pixel SD requests
+# (level, C) of SDXL-lite's GroupNorm+stitch calls: each level's ResBlocks, and
+# the decoder's, whose input is the skip concatenation
+GN_LEVELS = ((0, 64), (0, 128), (1, 128), (1, 256))
 KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
     "groupnorm_stitch": (groupnorm_stitch, "src/repro_torch/kernels/csrc/groupnorm_stitch.cu",
                          "src/repro/kernels/groupnorm_stitch.py:128"),
@@ -183,62 +203,72 @@ def ptxas_summary(text: str) -> list:
 # phase 2
 # ---------------------------------------------------------------------------
 
+def gn_rows(dev, gen, level: int, C: int, res: list, patch: int, dtype, modes) -> list:
+    """The whole GroupNorm+stitch call on the CSP of ``res`` cut into
+    ``patch``-sided patches, for each statistics mode in ``modes``: held
+    against the plain composite and the plain version, and timed in a CUDA
+    graph beside its bound, the plain version and each kernel alone."""
+    imgs = [torch.randn(h, w, C, generator=gen).to(dev, dtype) for h, w in res]
+    csp, patches = split(imgs, patch=patch)
+    scale = torch.randn(C, generator=gen).to(dev)
+    bias = torch.randn(C, generator=gen).to(dev)
+    P, p = patches.shape[0], patches.shape[1]
+    meta = csp_device(csp, dev)
+    part = gn_partials(patches, 8)
+    # sums of p*p*C/8 terms in another order, fp32 in both
+    part_err = max_err(part, ref_gn_partials(patches, 8), 1e-4,
+                       f"gn_partials level {level} p={p} C={C} {dtype}", atol=1e-3)
+    partials_ms = cuda_ms(lambda: gn_partials(patches, 8))
+    rows = []
+    for exact in modes:
+        def whole(exact=exact):
+            return fused_groupnorm_stitch(csp, patches, scale, bias, 8, exact=exact)
+
+        def plain(exact=exact):   # the CPU path: partials, finalise, stitch
+            mean, rstd = ref_gn_finalize(ref_gn_partials(patches, 8),
+                                         meta.patch_req_i32, meta.request_offset_i32,
+                                         p, C, 1e-5, exact)
+            return ref_groupnorm_stitch(patches, meta.neighbors_i32,
+                                        mean.repeat_interleave(C // 8, dim=-1),
+                                        rstd.repeat_interleave(C // 8, dim=-1),
+                                        scale, bias)
+
+        got = whole()
+        want = gather_halo(patched_groupnorm(csp, patches, scale, bias, 8,
+                                             exact=exact), meta.neighbors)
+        torch.cuda.synchronize()
+        what = f"groupnorm_stitch level {level} p={p} C={C} {dtype} exact={exact}"
+        err = max(max_err(got, want, TOL[dtype]["gn"], what),
+                  max_err(got, plain(), TOL[dtype]["gn"], what + " (plain)"))
+        ms = cuda_ms(whole)
+        plain_ms = cuda_ms(plain)
+        stitch_ms = cuda_ms(lambda exact=exact: gn_stitch(
+            patches, part, meta.neighbors_i32, meta.patch_req_i32,
+            meta.request_offset_i32, scale, bias, exact=exact))
+        es = patches.element_size()
+        # each input read once (patches, scale, bias, CSP metadata), the tiles written once
+        n_bytes = (P * p * p * C * es + P * (p + 2) ** 2 * C * es + 2 * C * 4
+                   + meta.neighbors_i32.nbytes + meta.patch_req_i32.nbytes
+                   + meta.request_offset_i32.nbytes)
+        # statistics: add, multiply, add per input element; normalise + affine: 4 per output
+        bms, by = bound_ms(n_bytes, 3 * P * p * p * C + 4 * P * (p + 2) ** 2 * C, dtype)
+        rows.append(dict(level=level, P=P, p=p, C=C, dtype=str(dtype).split(".")[1],
+                         exact=exact, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=by, library_ms=None,
+                         partials_ms=partials_ms, stitch_ms=stitch_ms,
+                         partials_max_abs_err=part_err))
+    return rows
+
+
 def phase_kernels(dev) -> dict:
     gen = torch.Generator().manual_seed(0)
     results = {"groupnorm_stitch": [], "patch_attention": []}
     # GN-stitch on the chip's three-request CSP: level 0 (p=32) and level 1 (p=16)
-    for level, C in ((0, 64), (0, 128), (1, 128), (1, 256)):
+    for level, C in GN_LEVELS:
         f = 2 ** level
         res = [(h // f, w // f) for h, w in CHIP_RES]
         for dtype in (torch.float32, torch.bfloat16):
-            imgs = [torch.randn(h, w, C, generator=gen).to(dev, dtype) for h, w in res]
-            csp, patches = split(imgs, patch=32 // f)
-            scale = torch.randn(C, generator=gen).to(dev)
-            bias = torch.randn(C, generator=gen).to(dev)
-            P, p = patches.shape[0], patches.shape[1]
-            meta = csp_device(csp, dev)
-            part = gn_partials(patches, 8)
-            # sums of p*p*C/8 terms in another order, fp32 in both
-            part_err = max_err(part, ref_gn_partials(patches, 8), 1e-4,
-                               f"gn_partials level {level} C={C} {dtype}", atol=1e-3)
-            partials_ms = cuda_ms(lambda: gn_partials(patches, 8))
-            for exact in (True, False):
-                def whole(exact=exact):
-                    return fused_groupnorm_stitch(csp, patches, scale, bias, 8, exact=exact)
-
-                def plain(exact=exact):   # the CPU path: partials, finalise, stitch
-                    mean, rstd = ref_gn_finalize(ref_gn_partials(patches, 8),
-                                                 meta.patch_req_i32, meta.request_offset_i32,
-                                                 p, C, 1e-5, exact)
-                    return ref_groupnorm_stitch(patches, meta.neighbors_i32,
-                                                mean.repeat_interleave(C // 8, dim=-1),
-                                                rstd.repeat_interleave(C // 8, dim=-1),
-                                                scale, bias)
-
-                got = whole()
-                want = gather_halo(patched_groupnorm(csp, patches, scale, bias, 8,
-                                                     exact=exact), meta.neighbors)
-                torch.cuda.synchronize()
-                what = f"groupnorm_stitch level {level} C={C} {dtype} exact={exact}"
-                err = max(max_err(got, want, TOL[dtype]["gn"], what),
-                          max_err(got, plain(), TOL[dtype]["gn"], what + " (plain)"))
-                ms = cuda_ms(whole)
-                plain_ms = cuda_ms(plain)
-                stitch_ms = cuda_ms(lambda exact=exact: gn_stitch(
-                    patches, part, meta.neighbors_i32, meta.patch_req_i32,
-                    meta.request_offset_i32, scale, bias, exact=exact))
-                es = patches.element_size()
-                # each input read once (patches, scale, bias, CSP metadata), the tiles written once
-                n_bytes = (P * p * p * C * es + P * (p + 2) ** 2 * C * es + 2 * C * 4
-                           + meta.neighbors_i32.nbytes + meta.patch_req_i32.nbytes
-                           + meta.request_offset_i32.nbytes)
-                # statistics: add, multiply, add per input element; normalise + affine: 4 per output
-                bms, by = bound_ms(n_bytes, 3 * P * p * p * C + 4 * P * (p + 2) ** 2 * C, dtype)
-                row = dict(level=level, P=P, p=p, C=C, dtype=str(dtype).split(".")[1],
-                           exact=exact, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bms, bound_by=by, library_ms=None,
-                           partials_ms=partials_ms, stitch_ms=stitch_ms,
-                           partials_max_abs_err=part_err)
+            for row in gn_rows(dev, gen, level, C, res, 32 // f, dtype, (True, False)):
                 results["groupnorm_stitch"].append(row)
                 log(f"[gn_stitch] {json.dumps(row)}")
     # attention at the UNet's level-1 sequences (D=32) and SD3-lite's (D=16);
@@ -396,9 +426,10 @@ def serve(dev, params, use_cache: bool) -> tuple:
     return m, counts, eng, wl
 
 
-def phase_serve(dev) -> dict:
+def phase_serve(dev) -> tuple:
+    """(the main path's launches, the cache-on run's ``Metrics.cache_samples``)."""
     params = init_diffusion(SDXL_LITE, torch.Generator().manual_seed(0), device=dev)
-    main_launches = None
+    main_launches = cache_samples = None
     for use_cache in (False, True):
         m, counts, eng, wl = serve(dev, params, use_cache)
         steps = len(m.step_latencies)
@@ -425,14 +456,174 @@ def phase_serve(dev) -> dict:
                 raise RuntimeError(f"a kernel was not launched on the main path: {counts}")
             check_gn_kernels()
             main_launches = counts
+        else:
+            cache_samples = list(m.cache_samples)
         del eng
         torch.cuda.empty_cache()
-    return main_launches
+    return main_launches, cache_samples
 
 
-def kernels_line(results: dict, main_launches: dict) -> dict:
+# ---------------------------------------------------------------------------
+# phase 5
+# ---------------------------------------------------------------------------
+
+# policy -> the replicas' patch sides it must give
+FLEET_PATCHES = {"resolution_affinity": [64, 96, 128], "round_robin": [32, 32, 32]}
+
+
+def fleet_gn_rows(dev) -> list:
+    """GroupNorm+stitch at the affinity replicas' patch sides: a batch of two
+    requests of one resolution, each request one patch (exact statistics, as
+    SDXL-lite runs it)."""
+    gen = torch.Generator().manual_seed(4)
+    rows = []
+    for level, C in GN_LEVELS:
+        f = 2 ** level
+        for side in (64, 96, 128):
+            q = side // f
+            for dtype in (torch.float32, torch.bfloat16):
+                for row in gn_rows(dev, gen, level, C, [(q, q)] * 2, q, dtype, (True,)):
+                    rows.append(row)
+                    log(f"[fleet gn_stitch] {json.dumps(row)}")
+    return rows
+
+
+def fleet_steps(dev, params) -> None:
+    """One sampler step on each affinity replica's CSP (one request whose
+    patch is its whole latent) with the kernels, against the plain step."""
+    rng = np.random.default_rng(5)
+    cfg = SDXL_LITE
+    for h, w in CHIP_RES:
+        img = torch.as_tensor(rng.normal(size=(h, w, cfg.latent_channels)),
+                              dtype=torch.float32, device=dev)
+        text = torch.as_tensor(rng.normal(size=(1, cfg.n_text, cfg.d_text)),
+                               dtype=torch.float32, device=dev)
+        csp, patches = split([img])
+        steps = torch.as_tensor([11])
+        outs, ms = {}, {}
+        for use in (True, False):
+            c = dataclasses.replace(cfg, use_kernels=use)
+            reset_launches()
+            outs[use], ms[use] = timed_step(
+                lambda c=c: sampler_step(c, params, csp, patches, steps, 50, text))
+            n = launches()
+            # 21 GroupNorm+stitch calls and 5 attention blocks x 1 resolution group
+            if use and n != {"groupnorm_stitch": 21, "patch_attention": 5}:
+                raise RuntimeError(f"{h}x{w} step: kernel launches {n}, expected 21 and 5")
+            check_gn_kernels()
+        err = max_err(outs[True], outs[False], 1e-3, f"sdxl-lite {h}x{w} sampler_step")
+        log(f"[fleet step] res={h}x{w} P={csp.total} p={csp.patch} max_abs_err={err:.3e} "
+            f"(tol 1e-3) step ms (cold): kernels {ms[True]:.3f} plain {ms[False]:.3f}")
+
+
+def fleet_run(dev, params, policy: str) -> dict:
+    """Three replicas whose engines run the real SDXL-lite step under the
+    fleet's sim clock serve a Poisson workload; kernel launches are counted
+    from 0 for this run alone."""
+    factory = sim_engine_factory(resolutions=CHIP_RES, steps=20, synthetic=False,
+                                 model_builder=lambda: (SDXL_LITE, params), device=dev)
+    cl = Cluster(factory, CHIP_RES, ClusterConfig(n_replicas=3, policy=policy))
+    wl = cluster_workload(3.0, 2.0, resolutions=CHIP_RES, slo_scale=10.0, steps=20, seed=2)
+    reset_launches()
+    t0 = time.perf_counter()
+    m = cl.run(wl)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    check_gn_kernels()
+    s = m.summary()
+    reps = [(r.engine.patch, len(r.engine.metrics.step_latencies)) for r in cl.replicas]
+    log(f"[fleet] policy={policy} submitted={len(wl)} completed={m.completed} "
+        f"dropped={m.dropped} SLO satisfaction={s['slo_satisfaction']} goodput={s['goodput']} "
+        f"replicas (patch, steps)={reps} launches={counts} wall s={wall:.3f}")
+    if m.completed < 1 or m.completed + m.dropped != len(wl):
+        raise RuntimeError(f"fleet {policy}: {m.completed} completed, {m.dropped} dropped "
+                           f"of {len(wl)}")
+    if sorted(p for p, _ in reps) != FLEET_PATCHES[policy]:
+        raise RuntimeError(f"fleet {policy}: replica patches {reps}")
+    by_rid = {r.rid: r for r in wl}
+    images = {rid: img for r in cl.replicas for rid, img in r.engine.outputs.items()}
+    if len(images) != m.completed:
+        raise RuntimeError(f"fleet {policy}: {len(images)} images for {m.completed} completions")
+    for rid, img in images.items():
+        h, w = by_rid[rid].resolution
+        if img.shape != (8 * h, 8 * w, 3) or not np.all(np.isfinite(img)):
+            raise RuntimeError(f"fleet {policy} request {rid}: image {img.shape} finite="
+                               f"{bool(np.all(np.isfinite(img)))}")
+    if min(counts.values()) <= 0:
+        raise RuntimeError(f"fleet {policy}: a kernel was not launched: {counts}")
+    del cl, factory, images
+    torch.cuda.empty_cache()
+    return counts
+
+
+def fleet_latency_predictor(dev, params) -> None:
+    """The paper's online latency predictor on the card: the warm host-clock
+    SDXL-lite step latency (median of 3 after a device synchronise) of every
+    composition of 0-2 requests per resolution, and the MLP fitted to them
+    (80/20 split). A measurement, not a gate."""
+    eng = PatchedServeEngine(SDXL_LITE, params, EngineConfig(clock="real"),
+                             dict.fromkeys(CHIP_RES, 1.0), CHIP_RES, device=dev)
+    feats, lats = [], []
+    for counts in itertools.product(range(3), repeat=len(CHIP_RES)):
+        if not sum(counts):
+            continue
+        batch = [res for res, n in zip(CHIP_RES, counts) for _ in range(n)]
+        reqs = [Request(rid=i, resolution=res, arrival=0.0, slo=1e9, total_steps=50)
+                for i, res in enumerate(batch)]
+        for r in reqs:
+            eng._prepare(r)
+        for _ in range(2):
+            eng._denoise_step(reqs)
+        ms = [timed_step(lambda: eng._denoise_step(reqs))[1] for _ in range(5)]
+        feats.append(make_features(counts, eng.patches_per_res))
+        lats.append(float(np.median(ms)) / 1e3)
+    feats, lats = np.stack(feats), np.asarray(lats)
+    t0 = time.perf_counter()
+    model = fit_latency_model(feats, lats, device=dev)
+    fit_s = time.perf_counter() - t0
+    # the same split as the fit's: what predicting the training mean scores
+    order = np.random.default_rng(0).permutation(len(lats))
+    ntr = int(len(lats) * 0.8)
+    mean_err = float(np.mean(np.abs(lats[order[:ntr]].mean() - lats[order[ntr:]])
+                             / lats[order[ntr:]]))
+    log(f"[predictor] latency MLP: {len(lats)} measured compositions, step ms "
+        f"{1e3 * lats.min():.3f}..{1e3 * lats.max():.3f}; fitted on {dev} in {fit_s:.2f} s; "
+        f"eval_err={model.eval_err:.4f} on the 20% split (the paper's bar: 0.037; "
+        f"predicting the training mean: {mean_err:.4f})")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def fleet_cache_hit_model(samples: list) -> None:
+    """``fit_cache_hit_model`` on phase 4's cache-on samples, beside the
+    checked-in coefficients. A measurement; nothing is written."""
+    fit, default = fit_cache_hit_model(samples), CacheHitModel()
+    log(f"[predictor] cache-hit model refitted to {len(samples)} phase-4 cache samples: "
+        f"b0={fit.b0:.4f} b_conc={fit.b_conc:.4f} b_step={fit.b_step:.4f} (checked-in: "
+        f"b0={default.b0} b_conc={default.b_conc} b_step={default.b_step})")
+
+
+def phase_fleet(dev, cache_samples: list) -> dict:
+    t0 = time.perf_counter()
+    params = init_diffusion(SDXL_LITE, torch.Generator().manual_seed(0), device=dev)
+    gn = fleet_gn_rows(dev)
+    fleet_steps(dev, params)
+    fleet_launches = {policy: fleet_run(dev, params, policy) for policy in FLEET_PATCHES}
+    fleet_latency_predictor(dev, params)
+    fleet_cache_hit_model(cache_samples)
+    log(f"[fleet] phase 5 in {time.perf_counter() - t0:.1f} s")
+    return {"groupnorm_stitch": gn, "launches": fleet_launches}
+
+
+SHAPE_KEYS = ("level", "P", "p", "C", "B", "S", "H", "D", "dtype", "exact", "n_split")
+
+
+def kernels_line(results: dict, main_launches: dict, fleet: dict) -> dict:
     """One entry per kernel: the fp32 case at the largest main-path shape,
-    with the largest fp32 error over all its cases."""
+    with the largest fp32 error over all its cases; ``launches`` from the
+    main path's run (phase 4), ``fleet_launches`` from each fleet run, and
+    for GroupNorm+stitch the fleet's new patch sides (``fleet_shapes``)."""
     out = []
     for name, (_, source, replaces) in KERNELS.items():
         rows = [r for r in results[name] if r["dtype"] == "float32"]
@@ -443,9 +634,14 @@ def kernels_line(results: dict, main_launches: dict) -> dict:
                     "ms": pick["ms"], "plain_ms": pick["plain_ms"], "bound_ms": pick["bound_ms"],
                     "bound_by": "bytes" if pick["bound_by"] == "bytes" else "operations",
                     "library_ms": pick["library_ms"],
-                    "shape": {k: v for k, v in pick.items() if k in
-                              ("level", "P", "p", "C", "B", "S", "H", "D", "dtype", "exact",
-                               "n_split")}})
+                    "shape": {k: v for k, v in pick.items() if k in SHAPE_KEYS},
+                    "fleet_launches": {policy: counts[name]
+                                       for policy, counts in fleet["launches"].items()}})
+        if name == "groupnorm_stitch":
+            out[-1]["fleet_shapes"] = [
+                {k: v for k, v in r.items()
+                 if k in SHAPE_KEYS + ("max_abs_err", "ms", "bound_ms", "bound_by")}
+                for r in fleet["groupnorm_stitch"]]
     return {"kernels": out}
 
 
@@ -462,9 +658,10 @@ def main() -> int:
     smi = phase_device()
     results = phase_kernels(dev)
     phase_step(dev)
-    main_launches = phase_serve(dev)
+    main_launches, cache_samples = phase_serve(dev)
+    fleet = phase_fleet(dev, cache_samples)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps(kernels_line(results, main_launches)))
+    log(json.dumps(kernels_line(results, main_launches, fleet)))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

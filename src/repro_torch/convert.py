@@ -25,3 +25,9 @@ def diffusion_params_from_numpy(tree, device=None):
 def vae_params_from_numpy(tree, device=None):
     """``init_vae`` output after ``tree_map(np.asarray, ...)`` -> torch."""
     return _tree_from_numpy(tree, resolve_device(device))
+
+
+def mlp_params_from_numpy(tree, device=None):
+    """A predictor MLP's fp32 params (``w1, b1, w2, b2`` and, for the
+    latency model, ``w3, b3``) after ``tree_map(np.asarray, ...)`` -> torch."""
+    return _tree_from_numpy(tree, resolve_device(device))

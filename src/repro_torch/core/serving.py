@@ -6,7 +6,10 @@ Two clocks:
   (the CUDA card by default) and measures wall time, synchronising the
   device before every clock read so a step's time is its execution, not its
   enqueue;
-- ``sim``: virtual clock driven by a latency surrogate — no device math.
+- ``sim``: virtual clock driven by a latency surrogate. With
+  ``sim_synthetic`` requests carry no tensors and a step is pure accounting;
+  without it the engine runs the same model step on its device as the real
+  clock does, and charges the surrogate's time for it.
 
 Per engine iteration (continuous batching at step granularity, no
 preemption):
@@ -57,10 +60,11 @@ class EngineConfig:
     cache_capacity: int = 8192
     patch_cap: int = 0                  # 0 = pure GCD (paper default)
     straggler_factor: float = 3.0
-    # sim-clock only: skip latent/text allocation, patch split/merge and VAE
-    # decode entirely — requests carry no tensors and a step just advances
-    # steps_done. Makes large cluster sweeps cheap; latency accounting is
-    # identical (the predictor only sees batch compositions).
+    # sim-clock only: skip latent/text allocation, the model step, patch
+    # split/merge and VAE decode entirely — requests carry no tensors and a
+    # step just advances steps_done. Makes large cluster sweeps cheap;
+    # latency accounting is identical (the predictor only sees batch
+    # compositions).
     sim_synthetic: bool = False
     # Composition bucketing: per-resolution counts are padded up to this
     # ladder with dummy requests, as the reference does to bound its compiled
@@ -540,13 +544,11 @@ class PatchedServeEngine:
             frac = float(np.mean([r.steps_done for r in active])) / total_steps
             hook, savings = self._block_hook(csp, frac)
 
-        if self.cfg.clock == "sim":
-            # virtual clock: skip device math, only cache bookkeeping savings
-            new_patches = patches
-        else:
-            new_patches = sampler_mod.sampler_step(
-                self.mcfg, self.params, csp, patches, step_req, total_steps,
-                text, block_hook=hook)
+        # the model step runs on both clocks; the sim clock charges the
+        # surrogate's time for it (the reference's sim clock skips it)
+        new_patches = sampler_mod.sampler_step(
+            self.mcfg, self.params, csp, patches, step_req, total_steps,
+            text, block_hook=hook)
         outs = merge_by_request(csp, new_patches)
         for r in active:                # dummies' outputs are discarded
             r.latent = outs[r.rid]
