@@ -34,7 +34,21 @@ Phases, each of which must pass:
    affinity CSP against the plain step; and the paper's two predictors on
    the card: the latency MLP fitted to measured step latencies of every
    composition of 0-2 requests per resolution, and the cache-hit model
-   refitted to phase 4's cache samples (both printed, neither a gate).
+   refitted to phase 4's cache samples (both printed, neither a gate);
+6. the LM serving forward (no kernel of its own: the JAX package's LM path
+   reaches no Pallas kernel): (a) each of the ten architectures' reduced
+   fp32 configs through one prefill step and one decode step on the card
+   against the CPU, logits and every cache leaf at 1e-4; (b) internlm2-1.8b
+   at full width and depth in bf16 with random weights drawn on the card:
+   eight ragged prompts through ``seqpack.pack`` + ``packed_prefill`` against
+   each request's own causal forward, a B=4 S=512 prefill step, 64 greedy
+   decode steps, the first against the causal forward over S+1 tokens,
+   prefill and decode ms beside their bounds, tokens/s, the device's busy
+   share of a decode step and the peak memory; (c) one full-width period of
+   mixtral-8x7b (S=4608: flash attention and a wrapped sliding-window ring)
+   and two layers of falcon-mamba-7b (S=1024), each prefilled then decoded
+   against the causal forward; and the SSM scan at falcon-mamba's width,
+   the port's sequential loop against a log-step scan.
 
 Every comparison phase runs with TF32 off for cuDNN convs and cuBLAS matmuls.
 The last line is ``{"ok": true, "device": {...}}``; without CUDA, or if any
@@ -60,12 +74,14 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.cluster import Cluster, ClusterConfig, sim_engine_factory  # noqa: E402
 from repro_torch.cluster.simtools import cluster_workload  # noqa: E402
+from repro_torch.configs import ARCHS, torch_dtype  # noqa: E402
 from repro_torch.core.csp_device import csp_device  # noqa: E402
 from repro_torch.core.latency_model import (  # noqa: E402
     CacheHitModel, fit_cache_hit_model, fit_latency_model, make_features)
 from repro_torch.core.patched_ops import patched_groupnorm  # noqa: E402
 from repro_torch.core.patching import split  # noqa: E402
 from repro_torch.core.requests import Request, poisson_workload  # noqa: E402
+from repro_torch.core.seqpack import pack, packed_prefill, unpack_by_request  # noqa: E402
 from repro_torch.core.serving import EngineConfig, PatchedServeEngine  # noqa: E402
 from repro_torch.core.stitcher import gather_halo  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -75,7 +91,11 @@ from repro_torch.kernels.ops import fused_groupnorm_stitch  # noqa: E402
 from repro_torch.kernels.patch_attention import block_q, patch_attention, split_kv  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     ref_attention, ref_gn_finalize, ref_gn_partials, ref_groupnorm_stitch)
+from repro_torch.launch.steps import make_decode_step, make_prefill_step  # noqa: E402
+from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models.diffusion import SD3_LITE, SDXL_LITE, init_diffusion  # noqa: E402
+from repro_torch.models.layers import tree_to  # noqa: E402
+from repro_torch.models.lm import forward, init_cache, init_model  # noqa: E402
 from repro_torch.models.sampler import sampler_step  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, NVIDIA data sheet
@@ -616,6 +636,360 @@ def phase_fleet(dev, cache_samples: list) -> dict:
     return {"groupnorm_stitch": gn, "launches": fleet_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 6
+# ---------------------------------------------------------------------------
+
+# relative to the largest |value| of the reference side: fp32 card against
+# CPU; bf16 between two routes on the card (packed against per-request,
+# decode against the causal forward), whose matmuls round to bf16 at other
+# places. The JAX package's own fp32 bar for these comparisons is 2e-3.
+LM_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+PEAK_FP32_FLOPS = 67e12                        # CUDA cores, data sheet
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor, tol: float, what: str) -> float:
+    """max |got - want| / max |want|, after checking both are finite; raises
+    over ``tol``."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    if got.shape != want.shape or not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise RuntimeError(f"{what}: shapes {tuple(got.shape)} {tuple(want.shape)}, "
+                           f"finite {bool(torch.isfinite(got).all())}")
+    err = float((got - want).abs().max() / (want.abs().max() + 1e-9))
+    if not err <= tol:
+        raise RuntimeError(f"{what}: relative error {err:.3e} over {tol:g}")
+    return err
+
+
+def tree_leaves(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(tree_leaves(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def pad_cache(cache: dict, big: dict) -> dict:
+    """A prefill cache copied into the leading slices of a larger zero cache
+    (``big``, from ``init_cache``), as the reference's
+    ``test_prefill_decode_consistency`` pads it."""
+    def pad(b, s):
+        if isinstance(b, dict):
+            return {k: pad(b[k], s[k]) for k in b}
+        b[tuple(slice(0, n) for n in s.shape)] = s
+        return b
+    return {"blocks": pad(big["blocks"], cache["blocks"]), "cur_len": cache["cur_len"]}
+
+
+def lm_batch(cfg, rng, B: int, S: int) -> dict:
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)}
+    if cfg.vlm_prefix:
+        batch["prefix_embeds"] = (rng.normal(size=(B, cfg.vlm_prefix, cfg.d_model))
+                                  * 0.1).astype(np.float32)
+    if cfg.enc_layers:
+        batch["enc_inputs"] = (rng.normal(size=(B, cfg.enc_seq, cfg.d_model))
+                               * 0.1).astype(np.float32)
+    return batch
+
+
+def lm_archs(dev) -> None:
+    """(a) Each architecture's reduced config in fp32: one prefill step and
+    one decode step (from the prefill cache padded by 4) on the card and on
+    the CPU from the same params, logits and every cache leaf compared."""
+    B, S = 2, 12
+    for arch in sorted(ARCHS):
+        cfg = ARCHS[arch].reduced()
+        params = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+        rng = np.random.default_rng(0)
+        batch = lm_batch(cfg, rng, B, S)
+        nxt = {"tokens": rng.integers(0, cfg.vocab_size, size=(B, 1)).astype(np.int32)}
+        out = []
+        for d in (torch.device("cpu"), dev):
+            p = tree_to(params, d)
+            logits, cache = make_prefill_step(cfg, d)(p, batch)
+            pre = {k: v.clone() for k, v in tree_leaves(cache["blocks"]).items()}
+            cache = pad_cache(cache, init_cache(cfg, B, S + cfg.vlm_prefix + 4, device=d))
+            dlogits, cache = make_decode_step(cfg, d)(p, cache, nxt)
+            out.append((logits, pre, dlogits, tree_leaves(cache["blocks"]), cache["cur_len"]))
+        (cl, cp, cd, cc, cn), (gl, gp, gd, gc, gn) = out
+        tol = LM_TOL[torch.float32]
+        errs = [rel_err(gl, cl, tol, f"{arch} prefill logits"),
+                rel_err(gd, cd, tol, f"{arch} decode logits")]
+        errs += [rel_err(gp[k], cp[k], tol, f"{arch} prefill cache {k}") for k in cp]
+        errs += [rel_err(gc[k], cc[k], tol, f"{arch} decode cache {k}") for k in cc]
+        if gn != cn or gn != S + cfg.vlm_prefix + 1:
+            raise RuntimeError(f"{arch}: cur_len {gn} (card) {cn} (cpu)")
+        log(f"[lm arch] {arch}: prefill + decode, card against CPU, {len(cp)} cache leaves: "
+            f"max rel err logits {max(errs[:2]):.2e}, cache {max(errs[2:]):.2e} (tol {tol:g})")
+
+
+def matmul_params(cfg, params) -> int:
+    """Weights that multiply every token: each matrix of the blocks (stacked
+    3-D; the depthwise conv and A_log are not matrix products, the routed
+    experts are counted apart) and the LM head."""
+    n = sum(v.numel() for k, v in tree_leaves(params["blocks"]).items()
+            if v.dim() == 3 and not k.endswith(("/conv_w", "/A_log")))
+    return n + cfg.d_model * cfg.padded_vocab
+
+
+def expert_params(params) -> int:
+    """Weights of one routed expert, summed over layers."""
+    return sum(v.numel() // v.shape[1] for v in tree_leaves(params["blocks"]).values()
+               if v.dim() == 4)
+
+
+def lm_bound(cfg, params, n_tokens: int, attn_pairs: int, kv_bytes: int,
+             state_bytes: int = 0) -> tuple:
+    """(least ms, "bytes" or "operations") of a forward over ``n_tokens``
+    tokens. Operations: the matmul flops those tokens need (each through
+    every dense weight and its top-k experts) at the bf16 tensor-core peak,
+    plus the fp32 attention logits and context over ``attn_pairs`` (query,
+    key) pairs per head at the fp32 peak of the CUDA cores (the SSM's
+    elementwise work is not counted). Bytes: the dense weights and every
+    expert some token needs, read once, plus the KV cache and SSM state
+    bytes, over the HBM rate."""
+    dense, per_expert = matmul_params(cfg, params), expert_params(params)
+    k = cfg.moe_top_k
+    hd = cfg.resolved_head_dim if cfg.n_heads else 0
+    n_attn = sum(1 for m, _ in cfg.layer_plan() if m == "attn") * cfg.n_periods
+    t_ops = (2 * n_tokens * (dense + k * per_expert) / BF16_MMA_FLOPS
+             + 4 * attn_pairs * cfg.n_heads * hd * n_attn / PEAK_FP32_FLOPS)
+    itemsize = torch.finfo(torch_dtype(cfg)).bits // 8
+    w_bytes = itemsize * (dense + min(cfg.n_experts, n_tokens * k) * per_expert)
+    t_bytes = (w_bytes + kv_bytes + state_bytes) / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def causal_pairs(S: int, window: int = 0) -> int:
+    """(query, key) pairs a causal (optionally windowed) mask keeps over S."""
+    q = np.arange(S)
+    return int(np.minimum(q + 1, window if window else S).sum())
+
+
+def decode_loop(cfg, params, cache, tok, n: int) -> tuple:
+    """``n`` greedy decode steps; (logits of each step, cache, host ms per
+    step after a device synchronise)."""
+    decode = make_decode_step(cfg, tok.device)
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        logits, cache = decode(params, cache, {"tokens": tok})
+        outs.append(logits)
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    torch.cuda.synchronize()
+    return outs, cache, (time.perf_counter() - t0) * 1e3 / n
+
+
+def lm_profile(fn, n: int, what: str) -> float:
+    """Logs ``n`` calls under ``torch.profiler``: the device's busy share of
+    the wall, device ops per call and the five device ops that take most of
+    its time; returns the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_us = sum(e.device_time for e in kernels)
+    log(f"[lm profile] {what}, {n} calls: wall {wall_us / 1e3 / n:.3f} ms/call, device busy "
+        f"{busy_us / 1e3 / n:.3f} ms/call ({100 * busy_us / wall_us:.1f}%), "
+        f"{len(kernels) / n:.0f} device ops/call")
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+        log(f"[lm profile]   {us / 1e3 / n:9.4f} ms/call  {100 * us / busy_us:5.1f}%  {name[:100]}")
+    return busy_us / wall_us
+
+
+def lm_main(dev, smi: str) -> None:
+    """(b) internlm2-1.8b at full width and depth, bf16, random weights drawn
+    on the card: packed prefill of eight ragged prompts against each one's
+    own causal forward; a B=4 S=512 prefill, then 64 greedy decode steps
+    from the cache padded to 576, the first against the causal forward over
+    S+1 tokens; times beside their bounds, tokens/s, the device's busy share
+    of a decode step and the peak memory."""
+    cfg = ARCHS["internlm2-1.8b"]
+    tol = LM_TOL[torch.bfloat16]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in tree_leaves(params).values())
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"(kv {cfg.n_kv_heads}), vocab {cfg.vocab_size} -> {cfg.padded_vocab}, {cfg.dtype}: "
+        f"{n_params / 1e9:.3f} B params drawn on the card in {time.perf_counter() - t0:.2f} s")
+
+    rng = np.random.default_rng(3)
+    lens = rng.integers(64, 513, size=8)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in lens]
+    pb = pack(prompts)
+    packed_prefill(cfg, params, pb)
+    packed, ms = timed_step(lambda: packed_prefill(cfg, params, pb))
+    by_rid = unpack_by_request(pb, packed)
+    errs = []
+    for rid, p in enumerate(prompts):
+        full, _, _, _ = forward(cfg, params, torch.as_tensor(p[None], device=dev), mode="train")
+        errs.append(rel_err(by_rid[rid], full[0, -1], tol, f"packed prefill request {rid}"))
+    pk_bound, pk_by = lm_bound(cfg, params, int(lens.sum()),
+                               sum(causal_pairs(int(n)) for n in lens), 0)
+    log(f"[lm] packed prefill: {len(prompts)} prompts of {sorted(int(n) for n in lens)} tokens "
+        f"in {pb.total} packed slots, {ms:.3f} ms (bound {pk_bound:.3f} ms, {pk_by}); "
+        f"last-token logits against each request's own causal forward: max rel err "
+        f"{max(errs):.3e} (tol {tol:g})")
+
+    B, S, n_dec = 4, 512, 64
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)}
+    prefill = make_prefill_step(cfg, dev)
+    prefill(params, batch)
+    pre_ms = min(timed_step(lambda: prefill(params, batch))[1] for _ in range(3))
+    logits, cache = prefill(params, batch)
+    hd, L = cfg.resolved_head_dim, cfg.n_layers
+    kv_bytes = 2 * L * B * S * cfg.n_kv_heads * hd * 2
+    pre_bound, pre_by = lm_bound(cfg, params, B * S, B * causal_pairs(S), kv_bytes)
+    cache = pad_cache(cache, init_cache(cfg, B, S + n_dec, device=dev))
+    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    outs, cache, dec_ms = decode_loop(cfg, params, cache, tok, n_dec)
+    dec_bound, dec_by = lm_bound(cfg, params, B, B * (S + n_dec), 2 * L * B * (S + n_dec)
+                                 * cfg.n_kv_heads * hd * 2)
+    toks = torch.cat([torch.as_tensor(batch["tokens"], device=dev), tok], dim=1)
+    full, _, _, _ = forward(cfg, params, toks, mode="train")
+    err = rel_err(outs[0], full[:, -1], tol, "first decode against the causal forward")
+    if not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise RuntimeError("non-finite decode logits")
+    # the profiled steps rewrite the cache's last 8 positions
+    decode = make_decode_step(cfg, dev)
+    prof_cache = {"blocks": cache["blocks"], "cur_len": S + n_dec - 8}
+    last = tok
+
+    def step():
+        nonlocal prof_cache
+        _, prof_cache = decode(params, prof_cache, {"tokens": last})
+    busy = lm_profile(step, 8, f"decode step B={B}")
+    lm_profile(lambda: prefill(params, batch), 2, f"prefill B={B} S={S}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[lm] {smi}")
+    log(f"[lm] prefill B={B} S={S}: {pre_ms:.3f} ms (bound {pre_bound:.3f} ms, {pre_by})")
+    log(f"[lm] decode B={B} from S={S}, cache {S + n_dec}: {dec_ms:.3f} ms/step over {n_dec} "
+        f"greedy steps (bound {dec_bound:.3f} ms, {dec_by}), {B * 1e3 / dec_ms:.1f} tokens/s; "
+        f"first decode against the causal forward over S+1: rel err {err:.3e} (tol {tol:g})")
+    log(f"[lm] decode step under torch.profiler: device busy {100 * busy:.1f}%; "
+        f"peak max_memory_allocated {peak:.2f} GB")
+    del params, cache, prof_cache, outs, full
+    torch.cuda.empty_cache()
+
+
+def lm_period(dev, smi: str, arch: str, over: dict, B: int, S: int, n_dec: int) -> None:
+    """(c) One arch cut to ``over`` (full width), bf16: a B x S prefill step,
+    then ``n_dec`` greedy decode steps, each against the causal forward over
+    the prompt and the decoded tokens."""
+    cfg = dataclasses.replace(ARCHS[arch], **over)
+    tol = LM_TOL[torch.bfloat16]
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(cfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+    rng = np.random.default_rng(4)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)}
+    prefill = make_prefill_step(cfg, dev)
+    prefill(params, batch)
+    pre_ms = min(timed_step(lambda: prefill(params, batch))[1] for _ in range(2))
+    logits, cache = prefill(params, batch)
+    sizes = {k: tuple(v.shape) for k, v in tree_leaves(cache["blocks"]).items()}
+    W = cfg.sliding_window
+    if W and S > W:
+        big = init_cache(cfg, B, W, device=dev)       # the ring is full; no room to add
+    else:
+        big = init_cache(cfg, B, S + n_dec, device=dev)
+    cache = pad_cache(cache, big)
+    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    outs, cache, dec_ms = decode_loop(cfg, params, cache, tok, n_dec)
+    toks = [torch.as_tensor(batch["tokens"], device=dev), tok]
+    toks += [o.argmax(-1, keepdim=True).to(torch.int32) for o in outs[:-1]]
+    full, _, _, _ = forward(cfg, params, torch.cat(toks, dim=1), mode="train")
+    errs = [rel_err(o, full[:, S + i], tol, f"{arch} decode {i} against the causal forward")
+            for i, o in enumerate(outs)]
+    hd = cfg.resolved_head_dim if cfg.n_heads else 0
+    n_attn = sum(1 for m, _ in cfg.layer_plan() if m == "attn") * cfg.n_periods
+
+    def kv(n: int) -> int:
+        """bf16 K and V bytes of ``n`` positions (the ring keeps W)."""
+        return 2 * n_attn * B * min(n, W or n) * cfg.n_kv_heads * hd * 2
+    state = 0
+    if cfg.d_inner:
+        n_ssm = sum(1 for m, _ in cfg.layer_plan() if m == "mamba") * cfg.n_periods
+        state = n_ssm * B * cfg.d_inner * (cfg.ssm_state * 4 + (cfg.conv_width - 1) * 2) * 2
+    pre_bound, pre_by = lm_bound(cfg, params, B * S, B * causal_pairs(S, W), kv(S))
+    dec_bound, dec_by = lm_bound(cfg, params, B, B * min(S + n_dec, W or S + n_dec),
+                                 kv(S + n_dec), state)
+    route = ("flash" if S >= cfg.flash_min_seq else "dense") if n_attn else "none"
+    log(f"[lm] {smi}")
+    log(f"[lm] {cfg.name} ({cfg.n_layers} layer(s), {over}): prefill B={B} S={S} "
+        f"(attention route {route}, cache {sorted(set(sizes.values()))}): {pre_ms:.3f} ms "
+        f"(bound {pre_bound:.3f} ms, {pre_by}); decode {dec_ms:.3f} ms/step over {n_dec} "
+        f"steps (bound {dec_bound:.3f} ms, {dec_by}); decodes against the causal forward: "
+        f"max rel err {max(errs):.3e} (tol {tol:g}); peak max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del params, cache, outs, full
+    torch.cuda.empty_cache()
+
+
+def scan_logstep(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The reference's parallel structure for the SSM scan, kept to time
+    against the port's loop: log-step (Hillis-Steele) rounds of
+    ``_scan_combine``, each element combined with the one 2^r before it.
+    Overwrites a and b; returns h."""
+    S, d = a.shape[1], 1
+    while d < S:
+        na, nb = mamba_mod._scan_combine((a[:, :-d], b[:, :-d]), (a[:, d:], b[:, d:]))
+        b[:, d:] = nb
+        if 2 * d < S:
+            a[:, d:] = na
+        d *= 2
+    return b
+
+
+def lm_scan(dev, shape=(2, 1024, 8192, 16)) -> None:
+    """The SSM scan at falcon-mamba-7b's full width (B=2, S=1024, d_inner
+    8192, d_state 16, fp32): the port's ``_scan`` (one multiply-add per
+    position) against a log-step scan, each against the loop's output."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    a = torch.exp(-torch.rand(shape, generator=gen, device=dev) * 0.1)
+    b = torch.randn(shape, generator=gen, device=dev) * 0.1
+    want = mamba_mod._scan(a.clone(), b.clone())
+    rows = {}
+    for name, fn in (("sequential (the port's _scan)", mamba_mod._scan),
+                     ("log-step", scan_logstep)):
+        fn(a.clone(), b.clone())
+        ms = []
+        for _ in range(3):
+            ac, bc = a.clone(), b.clone()
+            out, t = timed_step(lambda: fn(ac, bc))
+            ms.append(t)
+        rows[name] = (min(ms), float((out - want).abs().max()))
+    bound = 3 * a.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"[lm scan] {shape} fp32: " + ", ".join(
+        f"{n} {ms:.3f} ms (max abs diff {e:.2e})" for n, (ms, e) in rows.items())
+        + f"; bound {bound:.3f} ms (bytes: a and b read, h written)")
+    del a, b, want
+    torch.cuda.empty_cache()
+
+
+def phase_lm(dev, smi: str) -> None:
+    t0 = time.perf_counter()
+    reset_launches()
+    lm_archs(dev)
+    lm_main(dev, smi)
+    lm_period(dev, smi, "mixtral-8x7b", {"n_layers": 1, "capacity_factor": 4.0},
+              B=1, S=4608, n_dec=8)
+    lm_period(dev, smi, "falcon-mamba-7b", {"n_layers": 2}, B=2, S=1024, n_dec=16)
+    lm_scan(dev)
+    log(f"[lm] kernel launches in phase 6 (the LM path reaches no TPU kernel): {launches()}")
+    log(f"[lm] phase 6 in {time.perf_counter() - t0:.1f} s")
+
 SHAPE_KEYS = ("level", "P", "p", "C", "B", "S", "H", "D", "dtype", "exact", "n_split")
 
 
@@ -660,6 +1034,7 @@ def main() -> int:
     phase_step(dev)
     main_launches, cache_samples = phase_serve(dev)
     fleet = phase_fleet(dev, cache_samples)
+    phase_lm(dev, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels_line(results, main_launches, fleet)))
     log(smi)

@@ -1,0 +1,22 @@
+"""starcoder2-3b [dense] — 30L d_model=3072 24H (GQA kv=2) d_ff=12288
+vocab=49152, RoPE. [arXiv:2402.19173; hf]
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="starcoder2-3b",
+    family="dense",
+    n_layers=30,
+    d_model=3072,
+    n_heads=24,
+    n_kv_heads=2,
+    d_ff=12288,
+    vocab_size=49152,
+    head_dim=128,
+    norm="layernorm",
+    use_bias=True,
+    mlp_type="gelu",
+    rope=True,
+    rope_theta=1e5,
+    dtype="bfloat16",
+)

@@ -1,1 +1,1 @@
-"""Command-line launchers."""
+"""Command-line launchers and the LM serving steps."""

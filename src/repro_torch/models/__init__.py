@@ -1,1 +1,2 @@
-"""Diffusion backbones, samplers and the VAE/text stubs."""
+"""Diffusion backbones, samplers, the VAE/text stubs, and the LM family
+(configs in ``repro_torch.configs``)."""

@@ -1,13 +1,18 @@
-"""Parameter construction: the same tree paths and shapes as the reference's
-``ParamBuilder`` (``src/repro/models/layers.py``), drawn from a
-``torch.Generator``. Params are plain nested dicts of tensors; conv weights
-keep the reference's HWIO layout."""
+"""Shared functional layers and parameter construction.
+
+Params are plain nested dicts of tensors. ``ParamBuilder`` gives the same tree
+paths and shapes as the reference's (``src/repro/models/layers.py``), drawn
+from a ``torch.Generator``; conv weights keep the reference's HWIO layout.
+The LM layers (norms, MLPs, RoPE) compute as the reference does: norms and
+RoPE in fp32, the result cast back to the input's dtype.
+"""
 from __future__ import annotations
 
 import math
 from typing import Any, Dict, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 
@@ -15,9 +20,11 @@ Params = Dict[str, Any]
 
 
 class ParamBuilder:
-    """Draws every tensor on the CPU from ``generator`` (a CPU generator), so
-    a seed gives the same params on every device, then moves it to
-    ``device``."""
+    """Draws every tensor on the generator's device, then moves it to
+    ``device`` in ``dtype``. A CPU generator (the diffusion models' choice)
+    gives the same params on every device; a CUDA generator draws on the
+    card, which the full-width LMs use so that billions of normals are not
+    drawn on the host."""
 
     def __init__(self, generator: torch.Generator, dtype: torch.dtype = torch.float32,
                  device=None):
@@ -29,17 +36,26 @@ class ParamBuilder:
     def make(self, path: str, shape: Sequence[int], init: str = "normal",
              scale: Optional[float] = None) -> None:
         if init == "zeros":
-            arr = torch.zeros(tuple(shape))
+            arr = torch.zeros(tuple(shape), dtype=self.dtype, device=self.device)
         elif init == "ones":
-            arr = torch.ones(tuple(shape))
+            arr = torch.ones(tuple(shape), dtype=self.dtype, device=self.device)
         elif init == "normal":
             if scale is None:
                 fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
                 scale = 1.0 / math.sqrt(max(fan_in, 1))
-            arr = torch.randn(tuple(shape), generator=self.generator) * scale
+            arr = torch.randn(tuple(shape), generator=self.generator,
+                              device=self.generator.device)
+            arr = arr.mul_(scale).to(self.device, self.dtype)
         else:
             raise ValueError(init)
-        _tree_set(self.params, path, arr.to(self.device, self.dtype))
+        _tree_set(self.params, path, arr)
+
+    def submodule(self, prefix: str) -> "ParamBuilder":
+        """A builder whose params form the subtree at ``prefix``; it shares
+        this builder's generator, dtype and device."""
+        sub = ParamBuilder(self.generator, self.dtype, self.device)
+        _tree_set(self.params, prefix, sub.params)
+        return sub
 
 
 def _tree_set(tree: dict, path: str, value) -> None:
@@ -54,3 +70,108 @@ def tree_to(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def stack_params(trees: Sequence[Params]) -> Params:
+    """Stack a list of identical param trees along a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_params([t[k] for t in trees]) for k in first}
+    return torch.stack(list(trees), dim=0)
+
+
+def tree_index(tree, n: int):
+    """Entry ``n`` of a tree stacked along its leading axis (views, no copy)."""
+    if isinstance(tree, dict):
+        return {k: tree_index(v, n) for k, v in tree.items()}
+    return tree[n]
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(dt)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
+              eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps) * scale.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(dt)
+
+
+def apply_norm(cfg, x: torch.Tensor, p: Params) -> torch.Tensor:
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(x, p["scale"])
+    return layernorm(x, p["scale"], p.get("bias"))
+
+
+def init_norm(cfg, b: ParamBuilder, path: str, dim: int) -> None:
+    b.make(f"{path}/scale", (dim,), init="ones")
+    if cfg.norm == "layernorm":
+        b.make(f"{path}/bias", (dim,), init="zeros")
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(cfg, b: ParamBuilder, d_model: int, d_ff: int) -> None:
+    if cfg.mlp_type == "swiglu":
+        b.make("w_gate", (d_model, d_ff))
+        b.make("w_up", (d_model, d_ff))
+        b.make("w_down", (d_ff, d_model))
+    else:  # gelu
+        b.make("w_up", (d_model, d_ff))
+        b.make("w_down", (d_ff, d_model))
+        if cfg.use_bias:
+            b.make("b_up", (d_ff,), init="zeros")
+            b.make("b_down", (d_model,), init="zeros")
+
+
+def apply_mlp(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.mlp_type == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        return h @ p["w_down"]
+    h = x @ p["w_up"]
+    if "b_up" in p:
+        h = h + p["b_up"]
+    # jax.nn.gelu defaults to the tanh approximation; torch's to erf
+    h = F.gelu(h, approximate="tanh")
+    out = h @ p["w_down"]
+    if "b_down" in p:
+        out = out + p["b_down"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq). Rotates the two
+    halves of head_dim against each other, as the reference does (not
+    interleaved pairs)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)              # (hd/2,)
+    angles = positions[..., :, None].float() * freqs              # (..., seq, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

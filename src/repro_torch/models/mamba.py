@@ -1,0 +1,129 @@
+"""Mamba-1 (S6) selective state-space mixer, the port of the reference's
+``repro/models/mamba.py``.
+
+The reference evaluates the recurrence h_t = A_t * h_{t-1} + b_t with
+``jax.lax.associative_scan``; torch has none. ``_scan`` evaluates it over the
+sequence axis with plain tensor ops on the (B, S, d_inner, d_state) fp32
+pairs, one position at a time. Decode is a single state update per token.
+
+State threading (per mamba layer):
+  ssm_state : (B, d_inner, d_state)   fp32
+  conv_state: (B, conv_width - 1, d_inner)
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import resolve_device
+from repro_torch.models.layers import ParamBuilder, Params
+
+
+def init_mamba(cfg, b: ParamBuilder) -> None:
+    d, di, st = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    dt_rank = cfg.resolved_dt_rank
+    b.make("in_proj", (d, 2 * di))
+    b.make("conv_w", (cfg.conv_width, di), scale=0.5)
+    b.make("conv_b", (di,), init="zeros")
+    b.make("x_proj", (di, dt_rank + 2 * st))
+    b.make("dt_proj", (dt_rank, di))
+    b.make("dt_bias", (di,), init="zeros")
+    b.make("A_log", (di, st), init="zeros")  # A = -exp(0) = -1
+    b.make("D", (di,), init="ones")
+    b.make("out_proj", (di, d))
+
+
+def _ssm_params(cfg, p: Params, xc: torch.Tensor):
+    """xc: (B, S, di) post-conv activations -> dt, B_mat, C_mat (fp32)."""
+    st = cfg.ssm_state
+    dt_rank = cfg.resolved_dt_rank
+    proj = (xc @ p["x_proj"]).float()
+    dt, Bm, Cm = torch.split(proj, [dt_rank, st, st], dim=-1)
+    dt = F.softplus(dt @ p["dt_proj"].float() + p["dt_bias"].float())   # (B,S,di)
+    return dt, Bm, Cm
+
+
+def _discretize(p: Params, dt: torch.Tensor, Bm: torch.Tensor, xc: torch.Tensor):
+    """Returns Abar (B,S,di,st) and Bx (B,S,di,st), fp32."""
+    A = -torch.exp(p["A_log"].float())                                  # (di, st)
+    Abar = torch.exp(dt[..., None] * A[None, None])                     # (B,S,di,st)
+    Bx = (dt * xc.float())[..., None] * Bm[:, :, None, :]
+    return Abar, Bx
+
+
+def _scan_combine(a, b):
+    a1, b1 = a
+    a2, b2 = b
+    return a2 * a1, a2 * b1 + b2
+
+
+def _scan(Abar: torch.Tensor, Bx: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan of ``_scan_combine`` over axis 1: h_t = Abar_t * h_{t-1}
+    + Bx_t with h_{-1} = 0, as one in-place multiply-add per position.
+    Overwrites Bx; returns h.
+
+    At falcon-mamba-7b's width, (2, 1024, 8192, 16) fp32, this loop beats a
+    log-step (Hillis-Steele) scan of ``_scan_combine`` on an H100 80GB HBM3
+    at 700 W (``chip_smoke.py`` phase 6 times both; PERF.md): the loop is
+    bound by the host's launches, the log-step scan by its ~6 GB a round of
+    traffic over 10 rounds."""
+    for t in range(1, Bx.shape[1]):
+        Bx[:, t].addcmul_(Abar[:, t], Bx[:, t - 1])
+    return Bx
+
+
+def _conv_silu(cfg, p: Params, xi: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise conv1d of width W over the sequence, then SiLU, in
+    fp32, cast back to xi's dtype. The full-sequence and the decode path both
+    take it (the reference sums in the activations' dtype, in another order
+    in each path), so a bf16 decode step continues a bf16 prefill exactly."""
+    S = xi.shape[1]
+    W = cfg.conv_width
+    xpad = F.pad(xi, (0, 0, W - 1, 0)).float()
+    xc = sum(xpad[:, i:i + S] * p["conv_w"][i].float() for i in range(W))
+    return F.silu(xc + p["conv_b"].float()).to(xi.dtype)
+
+
+def mamba_mixer(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Full-sequence mixer (train / prefill). x: (B, S, d) -> (B, S, d)."""
+    xi, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)                   # (B,S,di)
+    xc = _conv_silu(cfg, p, xi)
+    dt, Bm, Cm = _ssm_params(cfg, p, xc)
+    h = _scan(*_discretize(p, dt, Bm, xc))
+    y = torch.einsum("bsnt,bst->bsn", h, Cm)
+    y = y + p["D"].float() * xc.float()
+    y = y * F.silu(z).float()
+    return y.to(x.dtype) @ p["out_proj"]
+
+
+def init_mamba_state(cfg, batch: int, dtype=torch.float32, device=None
+                     ) -> Dict[str, torch.Tensor]:
+    dev = resolve_device(device)
+    return {
+        "ssm": torch.zeros((batch, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
+                           device=dev),
+        "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.d_inner), dtype=dtype,
+                            device=dev),
+    }
+
+
+def mamba_decode(cfg, p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-token step. x: (B, 1, d). Writes the new state into ``state``'s
+    tensors in place (the reference returns new arrays) and returns them."""
+    xi, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)                   # (B,1,di)
+    window = torch.cat([state["conv"], xi.to(state["conv"].dtype)], dim=1)  # (B, W, di)
+    xc = _conv_silu(cfg, p, window)[:, -1:]                            # (B,1,di)
+
+    dt, Bm, Cm = _ssm_params(cfg, p, xc)
+    Abar, Bx = _discretize(p, dt, Bm, xc)                              # (B,1,di,st)
+    h = Abar[:, 0] * state["ssm"] + Bx[:, 0]                           # (B,di,st)
+    y = torch.einsum("bnt,bt->bn", h, Cm[:, 0])                        # (B,di)
+    y = y + p["D"].float() * xc[:, 0].float()
+    y = y * F.silu(z[:, 0]).float()
+    out = (y.to(x.dtype) @ p["out_proj"])[:, None]
+    state["ssm"].copy_(h)
+    state["conv"].copy_(window[:, 1:])
+    return out, state
