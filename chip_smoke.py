@@ -48,7 +48,23 @@ Phases, each of which must pass:
    mixtral-8x7b (S=4608: flash attention and a wrapped sliding-window ring)
    and two layers of falcon-mamba-7b (S=1024), each prefilled then decoded
    against the causal forward; and the SSM scan at falcon-mamba's width,
-   the port's sequential loop against a log-step scan.
+   the port's sequential loop against a log-step scan;
+7. the LM training path (no kernel of its own either): (a) each of the ten
+   architectures' reduced fp32 configs, ``lm_loss`` and every gradient leaf
+   on the card against the CPU at 1e-4; one AdamW and one Adafactor update,
+   card against CPU; the flash backward at ``tests/test_flash.py``'s four
+   gradient cases against the dense autograd version on the card; the SSM
+   scan's backward at falcon-mamba's width against autograd through a plain
+   out-of-place loop, both timed; (b) internlm2-1.8b at full width and depth
+   in bf16 with remat and AdamW (fp32 moments): ``make_train_step`` steps at
+   B=2 S=2048 (flash attention forward and backward) on one repeated
+   ``TokenPipeline`` batch, step ms beside its bound, tokens/s, the loss per
+   step (finite, and below the first step's after it), peak memory, and one
+   step under the profiler;
+   (c) the launcher as the reference runs it (``--smoke``, reduced config):
+   ``main()`` for 4 steps, then ``--resume``; an ``ElasticTrainer`` whose
+   simulated failure remeshes and restores; and 4 straight steps equal to 2
+   steps, a checkpoint, a restore and 2 more, bit for bit.
 
 Every comparison phase runs with TF32 off for cuDNN convs and cuBLAS matmuls.
 The last line is ``{"ok": true, "device": {...}}``; without CUDA, or if any
@@ -62,6 +78,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -72,6 +89,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.checkpoint import CheckpointManager, load_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.cluster import Cluster, ClusterConfig, sim_engine_factory  # noqa: E402
 from repro_torch.cluster.simtools import cluster_workload  # noqa: E402
 from repro_torch.configs import ARCHS, torch_dtype  # noqa: E402
@@ -84,6 +102,8 @@ from repro_torch.core.requests import Request, poisson_workload  # noqa: E402
 from repro_torch.core.seqpack import pack, packed_prefill, unpack_by_request  # noqa: E402
 from repro_torch.core.serving import EngineConfig, PatchedServeEngine  # noqa: E402
 from repro_torch.core.stitcher import gather_halo  # noqa: E402
+from repro_torch.data import TokenPipeline  # noqa: E402
+from repro_torch.distributed.elastic import ElasticConfig, ElasticTrainer  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.groupnorm_stitch import (  # noqa: E402
     gn_partials, gn_stitch, groupnorm_stitch)
@@ -91,12 +111,18 @@ from repro_torch.kernels.ops import fused_groupnorm_stitch  # noqa: E402
 from repro_torch.kernels.patch_attention import block_q, patch_attention, split_kv  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     ref_attention, ref_gn_finalize, ref_gn_partials, ref_groupnorm_stitch)
-from repro_torch.launch.steps import make_decode_step, make_prefill_step  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.launch.steps import (loss_and_grads, make_decode_step,  # noqa: E402
+                                      make_prefill_step, make_train_step)
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
+from repro_torch.models.flash import flash_attention  # noqa: E402
 from repro_torch.models.diffusion import SD3_LITE, SDXL_LITE, init_diffusion  # noqa: E402
-from repro_torch.models.layers import tree_to  # noqa: E402
+from repro_torch.models.layers import tree_leaves, tree_map, tree_to  # noqa: E402
 from repro_torch.models.lm import forward, init_cache, init_model  # noqa: E402
 from repro_torch.models.sampler import sampler_step  # noqa: E402
+from repro_torch.optim import (adafactor_init, adafactor_update, adamw_init,  # noqa: E402
+                               adamw_update, opt_init)
 
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.float32: 67e12,            # GN-stitch: fp32 outside the tensor cores
@@ -661,11 +687,12 @@ def rel_err(got: torch.Tensor, want: torch.Tensor, tol: float, what: str) -> flo
     return err
 
 
-def tree_leaves(tree, prefix: str = "") -> dict:
+def named_leaves(tree, prefix: str = "") -> dict:
+    """Path -> leaf of a nested dict."""
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
-            out.update(tree_leaves(v, f"{prefix}/{k}"))
+            out.update(named_leaves(v, f"{prefix}/{k}"))
         return out
     return {prefix: tree}
 
@@ -708,10 +735,10 @@ def lm_archs(dev) -> None:
         for d in (torch.device("cpu"), dev):
             p = tree_to(params, d)
             logits, cache = make_prefill_step(cfg, d)(p, batch)
-            pre = {k: v.clone() for k, v in tree_leaves(cache["blocks"]).items()}
+            pre = {k: v.clone() for k, v in named_leaves(cache["blocks"]).items()}
             cache = pad_cache(cache, init_cache(cfg, B, S + cfg.vlm_prefix + 4, device=d))
             dlogits, cache = make_decode_step(cfg, d)(p, cache, nxt)
-            out.append((logits, pre, dlogits, tree_leaves(cache["blocks"]), cache["cur_len"]))
+            out.append((logits, pre, dlogits, named_leaves(cache["blocks"]), cache["cur_len"]))
         (cl, cp, cd, cc, cn), (gl, gp, gd, gc, gn) = out
         tol = LM_TOL[torch.float32]
         errs = [rel_err(gl, cl, tol, f"{arch} prefill logits"),
@@ -728,14 +755,14 @@ def matmul_params(cfg, params) -> int:
     """Weights that multiply every token: each matrix of the blocks (stacked
     3-D; the depthwise conv and A_log are not matrix products, the routed
     experts are counted apart) and the LM head."""
-    n = sum(v.numel() for k, v in tree_leaves(params["blocks"]).items()
+    n = sum(v.numel() for k, v in named_leaves(params["blocks"]).items()
             if v.dim() == 3 and not k.endswith(("/conv_w", "/A_log")))
     return n + cfg.d_model * cfg.padded_vocab
 
 
 def expert_params(params) -> int:
     """Weights of one routed expert, summed over layers."""
-    return sum(v.numel() // v.shape[1] for v in tree_leaves(params["blocks"]).values()
+    return sum(v.numel() // v.shape[1] for v in named_leaves(params["blocks"]).values()
                if v.dim() == 4)
 
 
@@ -820,7 +847,7 @@ def lm_main(dev, smi: str) -> None:
     t0 = time.perf_counter()
     params = init_model(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     torch.cuda.synchronize()
-    n_params = sum(v.numel() for v in tree_leaves(params).values())
+    n_params = sum(v.numel() for v in tree_leaves(params))
     log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
         f"(kv {cfg.n_kv_heads}), vocab {cfg.vocab_size} -> {cfg.padded_vocab}, {cfg.dtype}: "
         f"{n_params / 1e9:.3f} B params drawn on the card in {time.perf_counter() - t0:.2f} s")
@@ -898,7 +925,7 @@ def lm_period(dev, smi: str, arch: str, over: dict, B: int, S: int, n_dec: int) 
     prefill(params, batch)
     pre_ms = min(timed_step(lambda: prefill(params, batch))[1] for _ in range(2))
     logits, cache = prefill(params, batch)
-    sizes = {k: tuple(v.shape) for k, v in tree_leaves(cache["blocks"]).items()}
+    sizes = {k: tuple(v.shape) for k, v in named_leaves(cache["blocks"]).items()}
     W = cfg.sliding_window
     if W and S > W:
         big = init_cache(cfg, B, W, device=dev)       # the ring is full; no room to add
@@ -990,6 +1017,352 @@ def phase_lm(dev, smi: str) -> None:
     log(f"[lm] kernel launches in phase 6 (the LM path reaches no TPU kernel): {launches()}")
     log(f"[lm] phase 6 in {time.perf_counter() - t0:.1f} s")
 
+
+# ---------------------------------------------------------------------------
+# phase 7
+# ---------------------------------------------------------------------------
+
+# a key bias's gradient is zero in exact arithmetic (softmax is invariant to a
+# shift shared by every key of a query): both sides hold rounding noise, held
+# to the tolerance relative to the tree's largest gradient
+ZERO_GRAD = ("/attn/bk", "/cross/bk")
+# tests/test_flash.py's gradient cases: (B, Sq, Sk, H, KV, D, Dv, causal, window, bq, bk)
+FLASH_GRAD_CASES = [
+    (2, 64, 64, 4, 2, 16, 16, True, 0, 16, 16),
+    (1, 100, 100, 2, 2, 8, 8, True, 0, 32, 32),
+    (2, 64, 64, 4, 1, 16, 32, True, 0, 16, 32),
+    (1, 96, 96, 2, 2, 16, 16, True, 32, 32, 32),
+]
+
+
+def grad_errs(got: dict, want: dict, tol: float, what: str) -> float:
+    """Largest of each leaf's max |got - want| over its largest |want| (the
+    tree's largest for the key biases, whose gradient is 0 in exact
+    arithmetic), computed on ``want``'s device; raises over ``tol``."""
+    if got.keys() != want.keys():
+        raise RuntimeError(f"{what}: gradient leaves differ")
+    gmax = max(float(w.abs().max()) for w in want.values())
+    worst = 0.0
+    for k, w in want.items():
+        w = w.detach().float()
+        g = got[k].detach().float().to(w.device)
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise RuntimeError(f"{what} {k}: shape {tuple(g.shape)} or not finite")
+        den = gmax if k.endswith(ZERO_GRAD) else float(w.abs().max())
+        err = float((g - w).abs().max()) / (den + 1e-30)
+        if not err <= tol:
+            raise RuntimeError(f"{what} {k}: relative error {err:.3e} over {tol:g}")
+        worst = max(worst, err)
+    return worst
+
+
+def train_archs(dev) -> None:
+    """(a) Each architecture's reduced fp32 config: ``lm_loss`` and every
+    gradient leaf on the card against the CPU from the same params."""
+    tol = LM_TOL[torch.float32]
+    for arch in sorted(ARCHS):
+        cfg = ARCHS[arch].reduced()
+        params = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+        batch = lm_batch(cfg, np.random.default_rng(0), 2, 16)
+        batch["labels"] = batch["tokens"]
+        out = []
+        for d in (torch.device("cpu"), dev):
+            b = {k: torch.as_tensor(v, device=d) for k, v in batch.items()}
+            loss, grads = loss_and_grads(cfg, tree_to(params, d), b)
+            out.append((loss, named_leaves(grads)))
+        (cl, cg), (gl, gg) = out
+        lerr = rel_err(gl, cl, tol, f"{arch} loss")
+        gerr = grad_errs(gg, cg, tol, arch)
+        log(f"[train arch] {arch}: loss {float(gl):.5f} (card) {float(cl):.5f} (cpu), rel err "
+            f"{lerr:.2e}; {len(cg)} gradient leaves, max rel err {gerr:.2e} (tol {tol:g})")
+
+
+def train_optim(dev) -> None:
+    """One AdamW and one Adafactor update of jamba's reduced params (2-D,
+    3-D and 4-D leaves) on the card against the CPU, from the same grads."""
+    tol = LM_TOL[torch.float32]
+    cfg = ARCHS["jamba-v0.1-52b"].reduced()
+    params = init_model(cfg, torch.Generator().manual_seed(1), device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=gen) * 0.3, params)
+    for name, init, update in (("adamw", adamw_init, adamw_update),
+                               ("adafactor", adafactor_init, adafactor_update)):
+        out = []
+        for d in (torch.device("cpu"), dev):
+            p, g = tree_to(params, d), tree_to(grads, d)
+            out.append(update(p, g, init(p)))
+        (cp, co), (gp, go) = out
+        errs = [rel_err(a, b, tol, f"{name} param") for a, b in
+                zip(tree_leaves(gp), tree_leaves(cp))]
+        errs += [rel_err(a, b, tol, f"{name} state") for a, b in
+                 zip(tree_leaves(go), tree_leaves(co))]
+        log(f"[train optim] {name}, one update of {len(tree_leaves(cp))} leaves, card against "
+            f"CPU: max rel err {max(errs):.2e} (tol {tol:g})")
+
+
+def dense_attention(q, k, v, causal: bool, window: int) -> torch.Tensor:
+    """tests/test_flash.py's dense oracle, in torch."""
+    B, Sq, H, D = q.shape
+    KV, Sk = k.shape[2], k.shape[1]
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.reshape(B, Sq, KV, H // KV, D), k) * D ** -0.5
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    m = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        m = kpos <= qpos
+        if window:
+            m &= kpos > qpos - window
+    p = torch.softmax(torch.where(m, s, -1e30), dim=-1)
+    return torch.einsum("bkgqs,bskv->bqkgv", p, v).reshape(B, Sq, H, v.shape[-1])
+
+
+def train_flash(dev) -> None:
+    """The flash backward at tests/test_flash.py's four gradient cases
+    against autograd through the dense oracle, on the card."""
+    tol = LM_TOL[torch.float32]
+    for B, Sq, Sk, H, KV, D, Dv, causal, window, bq, bk in FLASH_GRAD_CASES:
+        gen = torch.Generator(device=dev).manual_seed(1)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev)
+                   for shape in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, Dv)))
+        w = torch.randn((B, Sq, H, Dv), generator=gen, device=dev)
+        grads = []
+        for fn in (lambda a, b, c: flash_attention(a, b, c, causal, window, 0, bq, bk),
+                   lambda a, b, c: dense_attention(a, b, c, causal, window)):
+            ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            (fn(*ins) * w).sum().backward()
+            grads.append([t.grad for t in ins])
+        errs = [rel_err(a, b, tol, f"flash d{n} {(B, Sq, H, KV, D, Dv, window)}")
+                for a, b, n in zip(grads[0], grads[1], "qkv")]
+        log(f"[train flash] B={B} Sq={Sq} H={H} KV={KV} D={D} Dv={Dv} window={window} "
+            f"blocks {bq}x{bk}: dq/dk/dv against dense autograd, max rel err "
+            f"{max(errs):.2e} (tol {tol:g})")
+
+
+def scan_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t out of place, one position at a time:
+    plain autograd differentiates it."""
+    hs, h = [], torch.zeros_like(b[:, 0])
+    for t in range(b.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def train_scan(dev, smi: str, shape=(2, 1024, 8192, 16)) -> None:
+    """The SSM scan's backward at falcon-mamba-7b's width (fp32) against
+    autograd through ``scan_plain``; forward + backward ms of each."""
+    tol = LM_TOL[torch.float32]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    a = torch.exp(-torch.rand(shape, generator=gen, device=dev) * 0.1)
+    b = torch.randn(shape, generator=gen, device=dev) * 0.1
+    w = torch.randn(shape, generator=gen, device=dev)
+    rows = {}
+    for name, fn in (("_scan (custom backward)", mamba_mod._scan), ("plain loop", scan_plain)):
+        best = None
+        for _ in range(2):
+            ai, bi = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = fn(ai, bi)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (h * w).sum().backward()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if best is None or t2 - t0 < best[0] + best[1]:
+                best = ((t1 - t0) * 1e3, (t2 - t1) * 1e3)
+            grads = (ai.grad, bi.grad)
+            del h, ai, bi
+        rows[name] = (best, grads)
+    (_, (ga, gb)), (_, (pa, pb)) = rows.values()
+    errs = [rel_err(ga, pa, tol, "scan dAbar"), rel_err(gb, pb, tol, "scan dBx")]
+    bwd_bound = 5 * a.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"[train scan] {smi}")
+    log(f"[train scan] {shape} fp32, forward / backward ms: " + ", ".join(
+        f"{n} {f:.3f} / {bw:.3f}" for n, ((f, bw), _) in rows.items())
+        + f"; backward bound {bwd_bound:.3f} ms (bytes: dh, Abar, h read, dAbar, dBx "
+        f"written); dAbar, dBx against the plain loop: max rel err {max(errs):.2e} "
+        f"(tol {tol:g})")
+    del a, b, w, rows, ga, gb, pa, pb
+    torch.cuda.empty_cache()
+
+
+def train_bound(cfg, params, B: int, S: int) -> tuple:
+    """(least ms, "bytes" or "operations") of one train step with remat.
+    Operations: matmul flops at the bf16 tensor-core peak, 6 per weight and
+    token for the forward and backward plus 2 for the blocks' recomputed
+    forward (the head is not recomputed), and the fp32 attention flops of
+    the causal pairs at the CUDA cores' peak, 4 per pair, head and dim in
+    each forward (2) and 8 in the backward. Bytes: AdamW reads the bf16
+    params and grads and the fp32 moments and writes params and moments,
+    22 bytes a param, over the HBM rate."""
+    n_head = cfg.d_model * cfg.padded_vocab
+    dense = matmul_params(cfg, params)
+    T = B * S
+    n_attn = sum(1 for m, _ in cfg.layer_plan() if m == "attn") * cfg.n_periods
+    pairs = B * causal_pairs(S, cfg.sliding_window)
+    t_ops = ((6 * dense + 2 * (dense - n_head)) * T / BF16_MMA_FLOPS
+             + 16 * pairs * cfg.n_heads * cfg.resolved_head_dim * n_attn / PEAK_FP32_FLOPS)
+    n_params = sum(v.numel() for v in tree_leaves(params))
+    t_bytes = 22 * n_params / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+TRAIN_LOSS_TOL = 1e-2   # bf16 loss of one route against another, relative
+
+
+def train_witness(cfg, params, batch, S: int) -> tuple:
+    """The loss and gradients at ``params`` on the recipe's route (flash
+    attention, remat), held against two witnesses on the same params and
+    batch: the dense attention route (``flash_min_seq`` above S) and no
+    remat. Returns (flash-route loss, {witness: (loss rel err, largest
+    gradient-leaf rel err)}); raises over TRAIN_LOSS_TOL or LM_TOL[bf16]."""
+    loss, grads = loss_and_grads(cfg, params, batch)
+    grads = named_leaves(grads)
+    out = {}
+    for name, wcfg in (("dense route", dataclasses.replace(cfg, flash_min_seq=S + 1)),
+                       ("no remat", dataclasses.replace(cfg, remat=False))):
+        wl, wg = loss_and_grads(wcfg, params, batch)
+        out[name] = (rel_err(loss, wl, TRAIN_LOSS_TOL, f"train loss against the {name}"),
+                     grad_errs(grads, named_leaves(wg), LM_TOL[torch.bfloat16],
+                               f"train gradient against the {name}"))
+        del wg
+    return loss, out
+
+
+def train_main(dev, smi: str, B: int = 2, S: int = 2048, steps: int = 6) -> None:
+    """(b) internlm2-1.8b at full width and depth, bf16, remat, AdamW with
+    fp32 moments: ``steps`` train steps on one TokenPipeline batch, each
+    step's loss and gradients first held against the dense route and against
+    no remat at the same params (``train_witness``), then one more step under
+    the profiler. The losses must be finite and the first update must lower
+    the batch's loss."""
+    cfg = ARCHS["internlm2-1.8b"]
+    if not (cfg.remat and cfg.dtype == "bfloat16" and cfg.opt == "adamw"
+            and cfg.opt_state_dtype == "float32" and S >= cfg.flash_min_seq):
+        raise RuntimeError(f"{cfg.name}: not the configuration phase 7 (b) measures")
+    params = init_model(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt = opt_init(cfg, params)
+    batch = next(TokenPipeline(cfg.vocab_size, B, S, seed=0))
+    dbatch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    step = make_train_step(cfg, device=dev)
+    losses, ms, gaps, peak = [], [], [], 0.0
+    for _ in range(steps):
+        wloss, gap = train_witness(cfg, params, dbatch, S)
+        gaps.append(gap)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        peak = max(peak, torch.cuda.max_memory_allocated() / 1e9)
+        losses.append(float(metrics["loss"]))
+        rel_err(metrics["loss"], wloss, TRAIN_LOSS_TOL, "train step loss against its witness")
+    if not all(np.isfinite(losses)) or not losses[1] < losses[0]:
+        raise RuntimeError(f"train losses {losses}: not finite, or the first update did not "
+                           f"lower the batch's loss")
+    bound, by = train_bound(cfg, params, B, S)
+    n_params = sum(v.numel() for v in tree_leaves(params))
+    state = {"params": params, "opt": opt}
+
+    def one():
+        state["params"], state["opt"], _ = step(state["params"], state["opt"], batch)
+    busy = lm_profile(one, 1, f"train step B={B} S={S}")
+    steady = min(ms[1:])
+    log(f"[train] {smi}")
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.padded_vocab}, {n_params / 1e9:.3f} B params, bf16, remat, AdamW "
+        f"(fp32 moments); B={B} S={S} (attention route flash, flash_min_seq "
+        f"{cfg.flash_min_seq}), one TokenPipeline batch repeated")
+    log(f"[train] losses per step: {', '.join(f'{x:.5f}' for x in losses)}")
+    for name in gaps[0]:
+        log(f"[train] witness {name}, at each step's params: loss rel err "
+            + ", ".join(f"{g[name][0]:.2e}" for g in gaps) + f" (tol {TRAIN_LOSS_TOL:g}); "
+            + "largest gradient-leaf rel err " + ", ".join(f"{g[name][1]:.2e}" for g in gaps)
+            + f" (tol {LM_TOL[torch.bfloat16]:g})")
+    log(f"[train] step ms: {', '.join(f'{x:.1f}' for x in ms)}; steady {steady:.3f} ms "
+        f"(bound {bound:.3f} ms, {by}; {100 * bound / steady:.1f}% of it), "
+        f"{B * S * 1e3 / steady:.0f} tokens/s; peak max_memory_allocated in a step "
+        f"{peak:.2f} GB; device busy under the profiler {100 * busy:.1f}%")
+    del params, opt, state
+    torch.cuda.empty_cache()
+
+
+def tree_equal(a, b) -> bool:
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def train_launcher(dev) -> None:
+    """(c) The launcher on the card as the reference runs it (``--smoke``,
+    so the reduced config): 4 steps, then 2 more with ``--resume``; an
+    ``ElasticTrainer`` with a simulated failure; and resume equal to
+    straight training, bit for bit."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = str(Path(tmp) / "launch")
+        first = train_cli.main(["--steps", "4", "--ckpt", ck])
+        second = train_cli.main(["--steps", "2", "--ckpt", ck, "--resume"])
+        if first["step"] != 4 or second["step"] != 6 or not np.isfinite(second["loss"]):
+            raise RuntimeError(f"launcher: steps {first['step']}, {second['step']}")
+        dev_of = {t.device.type for t in tree_leaves({"p": second["params"], "o": second["opt"]})}
+        if dev_of != {dev.type}:
+            raise RuntimeError(f"launcher state on {dev_of}")
+
+        cfg = ARCHS["internlm2-1.8b"].reduced()
+        params = init_model(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        opt = opt_init(cfg, params)
+        pipe = TokenPipeline(cfg.vocab_size, 2, 16)
+        batches = [next(pipe) for _ in range(8)]
+        trainer = ElasticTrainer(make_mesh=lambda n: make_local_mesh(),
+                                 build_step=lambda mesh: make_train_step(cfg, device=dev),
+                                 ckpt=CheckpointManager(Path(tmp) / "elastic", keep=2),
+                                 cfg=ElasticConfig(ckpt_every=2), device=dev)
+        _, eopt, estep, metrics = trainer.run(params, opt, batches[:6], fail_at={5: 1})
+        remesh = [e for e in trainer.events if e["event"] == "remesh"]
+        if (not remesh or not np.isfinite(float(metrics["loss"]))
+                or eopt["step"].device.type != dev.type):
+            raise RuntimeError(f"elastic: events {trainer.events}")
+        log(f"[train launcher] ElasticTrainer on {torch.cuda.device_count()} device(s), "
+            f"fail_at {{5: 1}}: events {trainer.events}, ended at step {estep}, loss "
+            f"{float(metrics['loss']):.5f}")
+
+        step = make_train_step(cfg, device=dev)
+        p1, o1 = params, opt
+        for b in batches[:4]:
+            p1, o1, m1 = step(p1, o1, b)
+        p2, o2 = params, opt
+        for b in batches[:2]:
+            p2, o2, _ = step(p2, o2, b)
+        save_checkpoint(Path(tmp) / "resume", 2, {"params": p2, "opt": o2})
+        _, st = load_checkpoint(Path(tmp) / "resume", target={"params": params, "opt": opt})
+        p2, o2 = st["params"], st["opt"]
+        for b in batches[2:4]:
+            p2, o2, m2 = step(p2, o2, b)
+        same = (tree_equal(p1, p2) and tree_equal(o1, o2)
+                and bool(torch.equal(m1["loss"], m2["loss"])))
+        log(f"[train launcher] main() 4 steps (loss {first['loss']:.5f}) then --resume to step "
+            f"{second['step']} (loss {second['loss']:.5f}); 4 straight steps against 2 + "
+            f"checkpoint + restore + 2: {'bit for bit equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise RuntimeError("resumed training differs from straight training")
+
+
+def phase_train(dev, smi: str) -> None:
+    t0 = time.perf_counter()
+    reset_launches()
+    train_archs(dev)
+    train_optim(dev)
+    train_flash(dev)
+    train_scan(dev, smi)
+    train_main(dev, smi)
+    train_launcher(dev)
+    log(f"[train] kernel launches in phase 7 (the training path reaches no TPU kernel): "
+        f"{launches()}")
+    log(f"[train] phase 7 in {time.perf_counter() - t0:.1f} s")
+
+
 SHAPE_KEYS = ("level", "P", "p", "C", "B", "S", "H", "D", "dtype", "exact", "n_split")
 
 
@@ -1035,6 +1408,7 @@ def main() -> int:
     main_launches, cache_samples = phase_serve(dev)
     fleet = phase_fleet(dev, cache_samples)
     phase_lm(dev, smi)
+    phase_train(dev, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels_line(results, main_launches, fleet)))
     log(smi)

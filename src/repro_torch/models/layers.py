@@ -9,7 +9,7 @@ RoPE in fp32, the result cast back to the input's dtype.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -65,11 +65,43 @@ def _tree_set(tree: dict, path: str, value) -> None:
     tree[parts[-1]] = value
 
 
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of ``rest``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The leaves of a nested dict in sorted key order (``jax.tree_util``'s)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_unflatten(tree, leaves: List):
+    """A tree shaped like ``tree`` whose leaves are ``leaves``, taken in the
+    order of ``tree_leaves(tree)``."""
+    it = iter(leaves)
+
+    def rebuild(t):
+        if isinstance(t, dict):
+            return {k: rebuild(t[k]) for k in sorted(t)}
+        return next(it)
+    return rebuild(tree)
+
+
+def tree_unzip(tree, n: int) -> Tuple:
+    """A tree of n-tuples -> n trees."""
+    if isinstance(tree, dict):
+        parts = {k: tree_unzip(v, n) for k, v in tree.items()}
+        return tuple({k: parts[k][i] for k in tree} for i in range(n))
+    return tree
+
+
 def tree_to(tree, device: torch.device):
     """Move every tensor of a nested dict to ``device``."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+    return tree_map(lambda t: t.to(device), tree)
 
 
 def stack_params(trees: Sequence[Params]) -> Params:
@@ -85,6 +117,18 @@ def tree_index(tree, n: int):
     if isinstance(tree, dict):
         return {k: tree_index(v, n) for k, v in tree.items()}
     return tree[n]
+
+
+def tree_unbind(tree) -> list:
+    """Every entry of a tree stacked along its leading axis, as views. Under
+    autograd the gradient of all of them reaches the stacked leaf in one
+    stack, where indexing each entry would add a zero-padded full-size
+    gradient per entry."""
+    if isinstance(tree, dict):
+        parts = {k: tree_unbind(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 # ---------------------------------------------------------------------------
@@ -175,3 +219,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GroupNorm (whole image; the patched variant lives in core/) and the loss
+# ---------------------------------------------------------------------------
+
+def groupnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """x: (B, H, W, C) NHWC. Stats over (H, W, C//G) per group, in fp32."""
+    B, H, W, C = x.shape
+    xg = x.float().reshape(B, H, W, groups, C // groups)
+    var, mu = torch.var_mean(xg, dim=(1, 2, 4), correction=0, keepdim=True)
+    out = (xg - mu) * torch.rsqrt(var + eps)
+    out = out.reshape(B, H, W, C) * scale + bias
+    return out.to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean xent over valid tokens; logits (..., V), labels int (...,)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

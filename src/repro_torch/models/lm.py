@@ -1,5 +1,6 @@
 """LM-family model builder: dense / MoE / MLA / SSM / hybrid / enc-dec / VLM,
-the port of the reference's ``repro/models/lm.py`` (serving forward).
+the port of the reference's ``repro/models/lm.py``: the forward of the three
+modes and the training objective (``lm_loss``, ``mtp_logits``).
 
 One code path builds all ten architectures of ``repro_torch.configs`` from
 a ``ModelConfig``:
@@ -8,7 +9,9 @@ a ``ModelConfig``:
   ``params["blocks"]`` (the reference's layout), and a Python loop over the
   periods takes the place of the reference's ``lax.scan``;
 - three modes: "train" (the causal forward, no cache), "prefill" (emit cache),
-  "decode" (one token against the cache).
+  "decode" (one token against the cache); with ``cfg.remat`` the train
+  forward recomputes each period in the backward pass
+  (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
 
 ``cache["cur_len"]`` is a host ``int``, so a decode step never waits for the
 device to read it. A decode step writes the new token's entries into the
@@ -20,6 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import torch_dtype
 from repro_torch.device import resolve_device
@@ -27,7 +31,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (ParamBuilder, Params, apply_mlp, apply_norm,
-                                       init_mlp, init_norm, stack_params, tree_index)
+                                       cross_entropy, init_mlp, init_norm, stack_params,
+                                       tree_index, tree_unbind)
 
 Tree = Dict[str, Any]
 
@@ -217,9 +222,7 @@ def _encode(cfg, params, enc_inputs):
     x = enc_inputs.to(torch_dtype(cfg))
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-    layers = params["encoder"]["layers"]
-    for n in range(cfg.enc_layers):
-        lp = tree_index(layers, n)
+    for lp in tree_unbind(params["encoder"]["layers"]):
         h = apply_norm(cfg, x, lp["norm1"])
         x = x + attn_mod.attend(cfg, lp["attn"], h, positions, kind="full")
         h = apply_norm(cfg, x, lp["norm2"])
@@ -249,11 +252,8 @@ def forward(cfg, params: Params, tokens: torch.Tensor,
                                device=memory.device).expand(memory.shape[:2])
 
     plan = cfg.layer_plan()
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    period_caches = []
-    for n in range(cfg.n_periods):
-        block_p = tree_index(params["blocks"], n)
-        cache_in = tree_index(cache["blocks"], n) if cache is not None else None
+
+    def period(x, aux, block_p, cache_in):
         new_slots = {}
         for s, slot_plan in enumerate(plan):
             ck = None
@@ -264,7 +264,21 @@ def forward(cfg, params: Params, tokens: torch.Tensor,
                 cache_in[f"slot{s}"] if cache_in is not None else None,
                 cur_len, cross_kv=ck)
             new_slots[f"slot{s}"] = ncs
-            aux_total = aux_total + aux_s
+            aux = aux + aux_s
+        return x, aux, new_slots
+
+    # the reference's jax.checkpoint(period_body): each period's activations
+    # are recomputed in the backward pass instead of kept
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    period_caches = []
+    for n, block_p in enumerate(tree_unbind(params["blocks"])):
+        cache_in = tree_index(cache["blocks"], n) if cache is not None else None
+        if remat:
+            x, aux_total, new_slots = checkpoint(period, x, aux_total, block_p, cache_in,
+                                                 use_reentrant=False)
+        else:
+            x, aux_total, new_slots = period(x, aux_total, block_p, cache_in)
         if mode == "prefill":
             period_caches.append(new_slots)
 
@@ -278,6 +292,49 @@ def forward(cfg, params: Params, tokens: torch.Tensor,
     elif mode == "decode":
         new_cache = {"blocks": cache["blocks"], "cur_len": cur_len + 1}
     return logits, new_cache, aux_total, x
+
+
+def mtp_logits(cfg, params: Params, hidden: torch.Tensor, tokens: torch.Tensor
+               ) -> torch.Tensor:
+    """DeepSeek MTP: predict token t+2 from (hidden_t, embed(token_{t+1}))."""
+    p = params["mtp"]
+    nxt = F.embedding(torch.roll(tokens, -1, dims=1), params["embed"])
+    h = torch.cat([hidden, nxt.to(hidden.dtype)], dim=-1) @ p["proj"]
+    B, S, _ = h.shape
+    positions = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
+    hh = apply_norm(cfg, h, p["norm1"])
+    h = h + attn_mod.attend(cfg, p["attn"], hh, positions, kind="causal")
+    hh = apply_norm(cfg, h, p["norm2"])
+    h = h + apply_mlp(cfg, p["ffn"], hh)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return h @ head
+
+
+# ---------------------------------------------------------------------------
+# Loss / train objective
+# ---------------------------------------------------------------------------
+
+def lm_loss(cfg, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Next-token cross-entropy (labels shifted by one inside), plus
+    0.01 x the MoE load-balance loss and 0.3 x the MTP loss on t+2."""
+    logits, _, aux, hidden = forward(
+        cfg, params, batch["tokens"],
+        prefix_embeds=batch.get("prefix_embeds"),
+        enc_inputs=batch.get("enc_inputs"),
+        mode="train")
+    labels = batch["labels"]
+    npfx = cfg.vlm_prefix
+    if npfx and "prefix_embeds" in batch:
+        logits = logits[:, npfx:]
+    loss = cross_entropy(logits[:, :-1], labels[:, 1:], mask=batch.get("loss_mask"))
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux
+    if cfg.mtp:
+        l2 = mtp_logits(cfg, params, hidden, batch["tokens"])
+        if npfx and "prefix_embeds" in batch:
+            l2 = l2[:, npfx:]
+        loss = loss + 0.3 * cross_entropy(l2[:, :-2], labels[:, 2:])
+    return loss
 
 
 # ---------------------------------------------------------------------------

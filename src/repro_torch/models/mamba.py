@@ -4,7 +4,8 @@
 The reference evaluates the recurrence h_t = A_t * h_{t-1} + b_t with
 ``jax.lax.associative_scan``; torch has none. ``_scan`` evaluates it over the
 sequence axis with plain tensor ops on the (B, S, d_inner, d_state) fp32
-pairs, one position at a time. Decode is a single state update per token.
+pairs, one position at a time, and has a custom backward for training.
+Decode is a single state update per token.
 
 State threading (per mamba layer):
   ssm_state : (B, d_inner, d_state)   fp32
@@ -59,19 +60,51 @@ def _scan_combine(a, b):
     return a2 * a1, a2 * b1 + b2
 
 
+def _scan_loop(Abar: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """h_t += Abar_t * h_{t-1} for t = 1 .. S-1, in place on h; returns h."""
+    for t in range(1, h.shape[1]):
+        h[:, t].addcmul_(Abar[:, t], h[:, t - 1])
+    return h
+
+
+class _ScanFn(torch.autograd.Function):
+    """The scan with a backward: the forward is the loop on a copy of Bx;
+    the backward runs the recurrence in reverse time,
+    g_t = dL/dh_t + Abar_{t+1} * g_{t+1}, dBx_t = g_t, dAbar_t = g_t * h_{t-1}
+    (dAbar_0 = 0, since h_{-1} = 0)."""
+
+    @staticmethod
+    def forward(ctx, Abar, Bx):
+        h = _scan_loop(Abar, Bx.clone())
+        ctx.save_for_backward(Abar, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        Abar, h = ctx.saved_tensors
+        g = dh.clone()
+        for t in range(g.shape[1] - 2, -1, -1):
+            g[:, t].addcmul_(Abar[:, t + 1], g[:, t + 1])
+        dAbar = torch.zeros_like(Abar)
+        torch.mul(g[:, 1:], h[:, :-1], out=dAbar[:, 1:])
+        return dAbar, g
+
+
 def _scan(Abar: torch.Tensor, Bx: torch.Tensor) -> torch.Tensor:
     """Inclusive scan of ``_scan_combine`` over axis 1: h_t = Abar_t * h_{t-1}
     + Bx_t with h_{-1} = 0, as one in-place multiply-add per position.
-    Overwrites Bx; returns h.
+    Without autograd (prefill, decode) it overwrites Bx and returns it; when
+    a gradient is needed it goes through ``_ScanFn``, which leaves Bx as it
+    is and has the reverse-time loop as its backward.
 
     At falcon-mamba-7b's width, (2, 1024, 8192, 16) fp32, this loop beats a
     log-step (Hillis-Steele) scan of ``_scan_combine`` on an H100 80GB HBM3
     at 700 W (``chip_smoke.py`` phase 6 times both; PERF.md): the loop is
     bound by the host's launches, the log-step scan by its ~6 GB a round of
     traffic over 10 rounds."""
-    for t in range(1, Bx.shape[1]):
-        Bx[:, t].addcmul_(Abar[:, t], Bx[:, t - 1])
-    return Bx
+    if torch.is_grad_enabled() and (Abar.requires_grad or Bx.requires_grad):
+        return _ScanFn.apply(Abar, Bx)
+    return _scan_loop(Abar, Bx)
 
 
 def _conv_silu(cfg, p: Params, xi: torch.Tensor) -> torch.Tensor:
