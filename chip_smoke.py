@@ -64,7 +64,28 @@ Phases, each of which must pass:
    (c) the launcher as the reference runs it (``--smoke``, reduced config):
    ``main()`` for 4 steps, then ``--resume``; an ``ElasticTrainer`` whose
    simulated failure remeshes and restores; and 4 straight steps equal to 2
-   steps, a checkpoint, a restore and 2 more, bit for bit.
+   steps, a checkpoint, a restore and 2 more, bit for bit;
+8. the distributed path (no kernel of its own: it reaches no Pallas
+   kernel): (a) a one-rank NCCL group's ("data", "model") (1, 1)
+   DeviceMesh; internlm2-1.8b at full width and depth in bf16 through
+   ``build_cell``'s DTensor steps, each against the plain step on the same
+   params and batch and timed beside it: a train step at B=2 S=2048 (loss
+   and every updated param leaf), a B=4 S=512 prefill (logits and every
+   cache leaf) and 8 decode steps (logits, every cache leaf); (b) one
+   full-width period of mixtral-8x7b through the MoE's expert-parallel
+   branch against the local path: loss and every gradient leaf at 49,152
+   tokens (the weight-gather layout) and a B=4 decode step (token gather);
+   (a) and (b) exact, since on one rank every local op is the plain op
+   (the layouts' collectives are held only by the CPU tests on gloo);
+   (c) four gloo ranks spawned on the host with their tensors on the card:
+   ``quantized_psum`` against the same quantization on the host and the
+   exact sum (the MoE layouts and the pipeline need gloo collectives that
+   CUDA tensors do not get, so they run on the CPU only, in the tests);
+   (d) the dry-run and roofline of internlm2-1.8b x train_4k and
+   mixtral-8x7b x decode_32k on a fake 16x16 group, in a host-only
+   subprocess: per-device flops, eager op bytes, argument bytes,
+   collective bytes by kind, the H100 roofline terms and each cell's
+   seconds.
 
 Every comparison phase runs with TF32 off for cuDNN convs and cuBLAS matmuls.
 The last line is ``{"ok": true, "device": {...}}``; without CUDA, or if any
@@ -88,6 +109,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.distributed.tensor.experimental import implicit_replication  # noqa: E402
 
 from repro_torch.checkpoint import CheckpointManager, load_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.cluster import Cluster, ClusterConfig, sim_engine_factory  # noqa: E402
@@ -111,15 +133,19 @@ from repro_torch.kernels.ops import fused_groupnorm_stitch  # noqa: E402
 from repro_torch.kernels.patch_attention import block_q, patch_attention, split_kv  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     ref_attention, ref_gn_finalize, ref_gn_partials, ref_groupnorm_stitch)
+from repro_torch.configs.base import ShapeSpec  # noqa: E402
+from repro_torch.launch import context as ctx  # noqa: E402
+from repro_torch.launch import sharding as shd  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
-from repro_torch.launch.steps import (loss_and_grads, make_decode_step,  # noqa: E402
-                                      make_prefill_step, make_train_step)
+from repro_torch.launch.steps import (batch_shardings, build_cell, loss_and_grads,  # noqa: E402
+                                      make_decode_step, make_prefill_step, make_train_step)
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models.flash import flash_attention  # noqa: E402
 from repro_torch.models.diffusion import SD3_LITE, SDXL_LITE, init_diffusion  # noqa: E402
 from repro_torch.models.layers import tree_leaves, tree_map, tree_to  # noqa: E402
-from repro_torch.models.lm import forward, init_cache, init_model  # noqa: E402
+from repro_torch.models.lm import build_model, forward, init_cache, init_model  # noqa: E402
+from repro_torch.models.moe import ep_layout  # noqa: E402
 from repro_torch.models.sampler import sampler_step  # noqa: E402
 from repro_torch.optim import (adafactor_init, adafactor_update, adamw_init,  # noqa: E402
                                adamw_update, opt_init)
@@ -1363,6 +1389,300 @@ def phase_train(dev, smi: str) -> None:
     log(f"[train] phase 7 in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 8
+# ---------------------------------------------------------------------------
+
+#: phase 8's gate on the (1, 1) mesh: the DTensor and EP paths run the plain
+#: ops on the same data there, so they must agree bit for bit
+DIST_TOL = 0.0
+
+
+def dfull(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's global value (a tensor passes as it is)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def tree_rel_err(got, want, tol: float, what: str) -> float:
+    """The largest relative error over the leaves of two trees (DTensors
+    gathered)."""
+    g, w = named_leaves(got), named_leaves(want)
+    if set(g) != set(w):
+        raise RuntimeError(f"{what}: leaves {sorted(set(g) ^ set(w))} differ")
+    return max(rel_err(dfull(g[k]), w[k], tol, f"{what} {k}") for k in w)
+
+
+def dist_lm(dev, smi: str, mesh) -> None:
+    """(a) internlm2-1.8b at full width and depth, bf16, random weights drawn
+    on the card, through ``build_cell``'s DTensor steps on the (1, 1) mesh,
+    each against the plain step of phases 6-7 on the same params and batch:
+    a train step at B=2 S=2048 (loss and every updated param leaf), a
+    prefill at B=4 S=512 (logits and every cache leaf) and 8 decode steps
+    at B=4 (logits of each, every cache leaf after them). Each timed beside
+    the plain step, host clock to a device synchronise, best of the runs.
+    On the (1, 1) mesh every local op is the plain op on the same data, so
+    each comparison must be exact (tolerance 0); no layout's collective runs
+    here, and the layouts themselves are held only by the CPU tests on gloo
+    ranks (``tests/test_torch_distributed.py``)."""
+    cfg = ARCHS["internlm2-1.8b"]
+    tol = DIST_TOL
+    params = init_model(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    B, S = 2, 2048
+    batch = next(TokenPipeline(cfg.vocab_size, B, S, seed=0))
+    opt = opt_init(cfg, params)
+    plain = make_train_step(cfg, device=dev)
+    t_plain = []
+    for _ in range(2):
+        (p1, o1, m1), ms = timed_step(lambda: plain(params, opt, batch))
+        t_plain.append(ms)
+        del o1
+    fn, args, info = build_cell(cfg, ShapeSpec("train", S, B, "train"), mesh,
+                                params=params, opt=opt, batch=batch)
+    dparams, dopt = (shd.tree_place(t, sh) for t, sh in zip((params, opt), info["in_shardings"]))
+    del opt, args
+    t_dt = []
+    for _ in range(2):
+        (p2, o2, m2), ms = timed_step(lambda: fn(dparams, dopt, batch))
+        t_dt.append(ms)
+        del o2
+    del dopt
+    loss_err = rel_err(dfull(m2["loss"]), m1["loss"], tol, "DTensor train loss")
+    param_err = tree_rel_err(p2, p1, tol, "DTensor train step param")
+    log(f"[dist] {smi}")
+    log(f"[dist] {cfg.name} train step B={B} S={S} (bf16, remat, AdamW): DTensor {min(t_dt):.1f} ms "
+        f"against plain {min(t_plain):.1f} ms (runs {', '.join(f'{x:.1f}' for x in t_dt)} / "
+        f"{', '.join(f'{x:.1f}' for x in t_plain)}); loss {float(m1['loss']):.5f}, rel err "
+        f"{loss_err:.2e}; every updated param leaf: max rel err {param_err:.2e} (tol {tol:g})")
+    del p1, p2
+    torch.cuda.empty_cache()
+
+    B, S, n_dec = 4, 512, 8
+    rng = np.random.default_rng(6)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)}
+    prefill = make_prefill_step(cfg, dev)
+    fnp, _, _ = build_cell(cfg, ShapeSpec("prefill", S, B, "prefill"), mesh, batch=batch)
+    t_plain, t_dt = [], []
+    for _ in range(3):
+        (logits, cache), ms = timed_step(lambda: prefill(params, batch))
+        t_plain.append(ms)
+        (dlogits, dcache), ms = timed_step(lambda: fnp(dparams, batch))
+        t_dt.append(ms)
+    pre_err = rel_err(dfull(dlogits), logits, tol, "DTensor prefill logits")
+    pre_cache = tree_rel_err(dcache["blocks"], cache["blocks"], tol, "DTensor prefill cache")
+    log(f"[dist] {cfg.name} prefill B={B} S={S}: DTensor {min(t_dt):.2f} ms against plain "
+        f"{min(t_plain):.2f} ms; logits rel err {pre_err:.2e}, every cache leaf {pre_cache:.2e}")
+
+    cache = pad_cache(cache, init_cache(cfg, B, S + n_dec, device=dev))
+    dcache = pad_cache({"blocks": tree_map(dfull, dcache["blocks"]), "cur_len": S},
+                       init_cache(cfg, B, S + n_dec, device=dev))
+    fnd, _, info = build_cell(cfg, ShapeSpec("decode", S + n_dec, B, "decode"), mesh,
+                              cache=dcache, batch={"tokens": batch["tokens"][:, :1]})
+    dcache = {"blocks": shd.tree_place(dcache["blocks"], info["in_shardings"][1]["blocks"]),
+              "cur_len": S}
+    decode = make_decode_step(cfg, dev)
+    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    errs, t_plain, t_dt = [], [], []
+    for _ in range(n_dec):
+        (lg, cache), ms = timed_step(lambda: decode(params, cache, {"tokens": tok}))
+        t_plain.append(ms)
+        (dlg, dcache), ms = timed_step(lambda: fnd(dparams, dcache, {"tokens": tok}))
+        t_dt.append(ms)
+        errs.append(rel_err(dfull(dlg), lg, tol, "DTensor decode logits"))
+        tok = lg.argmax(-1, keepdim=True).to(torch.int32)
+    dec_cache = tree_rel_err(dcache["blocks"], cache["blocks"], tol, "DTensor decode cache")
+    log(f"[dist] {cfg.name} decode B={B} from S={S}, {n_dec} greedy steps: DTensor "
+        f"{float(np.median(t_dt)):.2f} ms/step against plain {float(np.median(t_plain)):.2f} "
+        f"ms/step (medians); logits max rel err {max(errs):.2e}, every cache leaf after them "
+        f"{dec_cache:.2e} (tol {tol:g})")
+    del params, dparams, cache, dcache
+    torch.cuda.empty_cache()
+
+
+def dist_moe(dev, smi: str, mesh) -> None:
+    """(b) One full-width period of mixtral-8x7b (phase 6c's cut) through the
+    expert-parallel branch of ``apply_moe`` on the (1, 1) mesh against the
+    local path: loss and every gradient leaf at a train shape of 49,152
+    tokens (enough that the weight gather, not the token gather, is the
+    layout), and one decode step at B=4 (token gather) from a B=4 S=64
+    prefill. Exact, as (a): on one rank the gathers and sums are the
+    identity."""
+    cfg = dataclasses.replace(ARCHS["mixtral-8x7b"], n_layers=1)
+    tol = DIST_TOL
+    params, specs = build_model(cfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+    dparams = shd.tree_place(params, shd.param_shardings(cfg, mesh, params, specs))
+    B, S = 12, 4096
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in next(TokenPipeline(cfg.vocab_size, B, S, seed=1)).items()}
+    (l1, g1), ms_plain = timed_step(lambda: loss_and_grads(cfg, params, batch))
+    bshard = batch_shardings(cfg, mesh, batch)
+
+    def ep():
+        with ctx.use_mesh(mesh), implicit_replication():
+            return loss_and_grads(cfg, dparams, shd.tree_place(batch, bshard))
+    (l2, g2), ms_ep = timed_step(ep)
+    loss_err = rel_err(dfull(l2), l1, tol, "mixtral EP loss")
+    grad_err = tree_rel_err(g2, g1, tol, "mixtral EP gradient")
+    del g1, g2
+    log(f"[dist] {cfg.name} one period, B={B} S={S} ({ep_layout(cfg, mesh, B, S)}): "
+        f"loss and gradients EP {ms_ep:.1f} ms against local {ms_plain:.1f} ms (first calls); "
+        f"loss rel err {loss_err:.2e}, every gradient leaf max rel err {grad_err:.2e} "
+        f"(tol {tol:g})")
+
+    B, S = 4, 64
+    tokens = np.random.default_rng(7).integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    logits, cache = make_prefill_step(cfg, dev)(params, {"tokens": tokens})
+    cache = pad_cache(cache, init_cache(cfg, B, S + 8, device=dev))
+    dcache = {"blocks": tree_map(torch.clone, cache["blocks"]), "cur_len": S}
+    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    lg, _ = make_decode_step(cfg, dev)(params, cache, {"tokens": tok})
+    fnd, _, _ = build_cell(cfg, ShapeSpec("decode", S + 8, B, "decode"), mesh, cache=dcache,
+                           batch={"tokens": tok})
+    dlg, _ = fnd(dparams, dcache, {"tokens": tok})
+    err = rel_err(dfull(dlg), lg, tol, "mixtral EP decode logits")
+    log(f"[dist] {cfg.name} one period, decode B={B} from S={S} "
+        f"({ep_layout(cfg, mesh, B, 1)}): logits rel err {err:.2e} (tol {tol:g})")
+    del params, dparams, cache, dcache
+    torch.cuda.empty_cache()
+
+
+DIST_WORKER = r"""
+import datetime, json, sys
+import numpy as np, torch, torch.distributed as dist
+rank, n, store = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+sys.path.insert(0, sys.argv[4])
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", store=dist.FileStore(store, n), rank=rank, world_size=n,
+                        timeout=datetime.timedelta(seconds=120))
+from repro_torch.optim.compression import quantized_psum
+x = np.random.default_rng(0).normal(size=(n, 4096)).astype(np.float32)
+q = quantized_psum(torch.as_tensor(x[rank], device="cuda"))
+# the same arithmetic on the host: shared scale, round-half-even codes
+xs = torch.as_tensor(x)
+scale = xs.abs().max() / 127.0 + 1e-12
+want = torch.clamp(torch.round(xs / scale), -127, 127).to(torch.int32).sum(0).float() * scale
+out = {"device": str(q.device), "err_codes": float((q.cpu() - want).abs().max()),
+       "err_exact": float((q.cpu() - xs.sum(0)).abs().max())}
+if rank == 0:
+    print("DIST-RESULT " + json.dumps(out), flush=True)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def dist_gloo(dev) -> None:
+    """(c) Four gloo ranks spawned on the host, each with its tensor on the
+    card: ``quantized_psum`` (an all-reduce MAX, then an int32 all-reduce
+    SUM, both of CUDA tensors) against the same quantization done on the
+    host (1e-6) and against the exact sum (the reference test's bound 0.2).
+    The MoE's expert-parallel layouts and ``pipelined_apply`` run on the
+    CPU only (``tests/test_torch_distributed.py``): under gloo, torch's
+    functional all-gather of a CUDA tensor (which DTensor's redistribution
+    and the MoE's weight and token gathers use) ends the process with a
+    segfault, and point-to-point sends of CUDA tensors time out."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen([sys.executable, "-c", DIST_WORKER, str(r), "4",
+                                   str(Path(tmp) / "store"), str(ROOT / "src")],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(4)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+    for p, o in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"gloo rank failed ({p.returncode}):\n{o[-3000:]}")
+    res = json.loads(next(line for line in outs[0].splitlines()
+                          if line.startswith("DIST-RESULT "))[len("DIST-RESULT "):])
+    if not (res["device"].startswith("cuda") and res["err_codes"] < 1e-6
+            and res["err_exact"] < 0.2):
+        raise RuntimeError(f"quantized_psum on gloo ranks: {res}")
+    log(f"[dist gloo] quantized_psum of (4096,) fp32 on 4 gloo ranks, CUDA tensors "
+        f"({res['device']}): max abs err {res['err_codes']:.3e} against the host's "
+        f"quantization (tol 1e-6), {res['err_exact']:.3e} against the exact sum (bound 0.2); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+DRYRUN_CELLS = (("internlm2-1.8b", "train_4k"), ("mixtral-8x7b", "decode_32k"))
+DRYRUN = r"""
+import json, sys, time
+from pathlib import Path
+sys.path.insert(0, sys.argv[1])
+from repro_torch.launch import dryrun, roofline
+for arch, shape in json.loads(sys.argv[2]):
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(arch, shape, False, Path(sys.argv[3]))
+    rf = roofline.analyze_cell(arch, shape, Path(sys.argv[3]))
+    print("DRYRUN " + json.dumps({"rec": rec, "roofline": rf,
+                                  "seconds": time.perf_counter() - t0}), flush=True)
+"""
+
+
+def start_dryrun(tmp: str) -> subprocess.Popen:
+    """(d) The dry-run of two cells on a fake 16x16 group, host only (no
+    CUDA device visible), in a subprocess: its process group is its own."""
+    import os
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-c", DRYRUN, str(ROOT / "src"),
+                             json.dumps(DRYRUN_CELLS), tmp],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def finish_dryrun(proc: subprocess.Popen) -> None:
+    try:
+        out, err = proc.communicate(timeout=400)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    if proc.returncode != 0:
+        raise RuntimeError(f"dry-run failed ({proc.returncode}):\n{err[-3000:]}")
+    for line in out.splitlines():
+        if not line.startswith("DRYRUN "):
+            continue
+        d = json.loads(line[len("DRYRUN "):])
+        rec, rf = d["rec"], d["roofline"]
+        coll = ", ".join(f"{k} {v:.3e}" for k, v in sorted(rec["collectives"]["bytes_by_kind"].items()))
+        t = rf["terms_s"]
+        log(f"[dist dryrun] {rec['cell']} on a fake group of {rec['devices']} ranks, "
+            f"{d['seconds']:.1f} s: per device {rec['cost']['flops']:.4e} flops, "
+            f"{rec['cost']['bytes_eager']:.4e} bytes of eager op traffic, arguments "
+            f"{rec['memory']['argument_size_in_bytes'] / 1e9:.3f} GB, collective bytes {coll}; "
+            f"H100 roofline compute {t['compute_s']:.4f} s, memory {t['memory_s']:.4f} s, "
+            f"collective {t['collective_s']:.4f} s ({rf['dominant']}), useful flops "
+            f"{rf['useful_flops_ratio']:.3f}")
+    if out.count("DRYRUN ") != len(DRYRUN_CELLS):
+        raise RuntimeError(f"dry-run printed {out.count('DRYRUN ')} cells")
+
+
+def phase_dist(dev, smi: str) -> None:
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_local_mesh()
+            log(f"[dist] one-rank NCCL group: mesh {mesh.shape} over {mesh.device_mesh}")
+            dist_lm(dev, smi, mesh)
+            dist_moe(dev, smi, mesh)
+        finally:
+            dist.destroy_process_group()
+        proc = start_dryrun(tmp)
+        try:
+            dist_gloo(dev)
+        finally:
+            finish_dryrun(proc)
+    log(f"[dist] kernel launches in phase 8 (the distributed path reaches no TPU kernel): "
+        f"{launches()}")
+    log(f"[dist] phase 8 in {time.perf_counter() - t0:.1f} s")
+
+
 SHAPE_KEYS = ("level", "P", "p", "C", "B", "S", "H", "D", "dtype", "exact", "n_split")
 
 
@@ -1409,6 +1729,7 @@ def main() -> int:
     fleet = phase_fleet(dev, cache_samples)
     phase_lm(dev, smi)
     phase_train(dev, smi)
+    phase_dist(dev, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels_line(results, main_launches, fleet)))
     log(smi)

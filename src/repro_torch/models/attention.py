@@ -9,19 +9,154 @@ Cache layout (per attention layer):
 
 The decode functions write the new token's entries into the cache tensors in
 place and return those same tensors (the reference returns new arrays); a
-decode step then moves one token's K/V, not the whole cache. The reference's
-two sharding constraints are the identity without a mesh and are left out.
+decode step then moves one token's K/V, not the whole cache.
+
+Under a mesh (``repro_torch.launch.context``) with DTensor activations, the
+reference's two sharding constraints redistribute, and the GQA core (the
+dense path, flash and decode) runs on each rank's local shards: batch over
+the DP axes, heads over "model" (or, with ``tp_mode="sp"``, the query
+sequence over "model" with K/V whole), as the reference's constraints leave
+them. GSPMD partitions that contraction by itself; DTensor cannot, since it
+would fold two split dims (batch and KV heads) into one. Without a mesh every
+function is the single-device code.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import math
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.launch import sharding as shd
+from repro_torch.launch.mesh import dp_axes
 from repro_torch.models.flash import flash_attention
-from repro_torch.models.layers import ParamBuilder, Params, apply_rope, rmsnorm
+from repro_torch.models.layers import ParamBuilder, Params, apply_rope, linear, rmsnorm
 
 NEG_INF = -1e30
+
+
+def _dist_mesh(*xs):
+    """``sharding.model_mesh()`` when one of ``xs`` is a DTensor, else None."""
+    mesh = shd.model_mesh()
+    return mesh if mesh is not None and any(shd.is_dtensor(x) for x in xs) else None
+
+
+def _batch_spec(mesh, B: int):
+    dp = dp_axes(mesh)
+    return dp if B % math.prod(mesh.shape[a] for a in dp) == 0 else None
+
+
+def seq_shard_constraint(x: torch.Tensor) -> torch.Tensor:
+    """tp_mode="sp": activations sharded over "model" on the SEQUENCE dim.
+
+    With MQA/GQA the K/V tensors are tiny, so sequence-parallel attention
+    gathers K/V instead of all-reducing full activations: projections and
+    MLP become comm-free, per-layer collectives drop to weight gathers.
+    """
+    mesh = _dist_mesh(x)
+    if mesh is None:
+        return x
+    s_spec = "model" if x.shape[1] % mesh.shape["model"] == 0 else None
+    spec = (_batch_spec(mesh, x.shape[0]), s_spec) + (None,) * (x.dim() - 2)
+    return shd.place(x, shd.NamedSharding(mesh, spec))
+
+
+def _constrain_kv(x: torch.Tensor) -> torch.Tensor:
+    """Replicate small KV tensors across the model axis before attention
+    (batch stays over the DP axes): one small all-gather, where a kv
+    projection's sharding left in place would spread into the attention
+    contraction."""
+    mesh = _dist_mesh(x)
+    if mesh is None:
+        return x
+    spec = (_batch_spec(mesh, x.shape[0]),) + (None,) * (x.dim() - 1)
+    return shd.place(x, shd.NamedSharding(mesh, spec))
+
+
+def _gqa_core(core: Callable, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              seq_split: bool, hd_core: Optional[Callable] = None) -> torch.Tensor:
+    """``core(q, k, v, q_offset)`` -> (B, Sq, H, Dv): a GQA attention over
+    whole K/V. Under a mesh it runs on local shards, batch over the DP axes,
+    and over "model" on the first of:
+    - for K/V whose head dim is split over "model" (a decode cache whose KV
+      heads do not split) and no gradient, the head dim, with
+      ``hd_core(q, k, v, reduce_logits)`` summing the logits across "model"
+      (the reference's logits all-reduce; gathering the cache instead would
+      move all of it every step);
+    - with ``seq_split`` (tp_mode="sp"), or query heads that do not split,
+      the query rows, each rank passing its rows' offset, K/V whole;
+    - the query heads with each rank's KV heads (whole K/V sliced locally
+      when the KV heads do not split);
+    - else replicated."""
+    mesh = _dist_mesh(q, k, v)
+    if mesh is None:
+        return core(q, k, v, 0)
+    B, Sq, H, _ = q.shape
+    KV = k.shape[2]
+    tp = mesh.shape["model"]
+    dm = mesh.device_mesh
+    b = _batch_spec(mesh, B)
+    m = dm.get_local_rank("model")
+    mi = mesh.axis_names.index("model")
+    hd_split = (hd_core is not None and shd.is_dtensor(k) and k.placements[mi].is_shard(3)
+                and not (H % tp == 0 and KV % tp == 0)
+                and not (torch.is_grad_enabled() and (q.requires_grad or k.requires_grad)))
+    if hd_split:
+        import torch.distributed._functional_collectives as funcol
+        q_spec = kv_spec = (b, None, None, "model")
+        group = dm.get_group("model")
+
+        def local(ql, kl, vl):
+            return hd_core(ql, kl, vl, lambda t: funcol.all_reduce(t, "sum", group))
+    elif (seq_split or H % tp != 0) and Sq % tp == 0 and Sq > 1:
+        q_spec, kv_spec = (b, "model", None, None), (b, None, None, None)
+        Sl = Sq // tp
+
+        def local(ql, kl, vl):
+            return core(ql, kl, vl, m * Sl)
+    elif H % tp == 0:
+        Hl, G = H // tp, H // KV
+        q_spec = (b, None, "model", None)
+        kv_split = KV % tp == 0
+        kv_spec = q_spec if kv_split else (b, None, None, None)
+
+        def local(ql, kl, vl):
+            if not kv_split:              # this rank's query heads' KV heads
+                if G % Hl == 0:
+                    j = m * Hl // G
+                    kl, vl = kl[:, :, j:j + 1], vl[:, :, j:j + 1]
+                else:
+                    idx = (torch.arange(Hl, device=kl.device) + m * Hl) // G
+                    kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+            return core(ql, kl, vl, 0)
+    else:
+        q_spec = kv_spec = (b, None, None, None)
+
+        def local(ql, kl, vl):
+            return core(ql, kl, vl, 0)
+    out = shd.on_shards(local, mesh, [q_spec, kv_spec, kv_spec],
+                        (shd.placements(mesh, q_spec),))(q, k, v)
+    if hd_split:    # the heads' outputs whole again (one token's: small)
+        out = shd.place(out, shd.NamedSharding(mesh, (b, None, None, None)))
+    return out
+
+
+def _write_slot(t: torch.Tensor, slot: int, new: torch.Tensor) -> None:
+    """``t[:, slot] = new[:, 0]`` for a cache tensor t (B, S, ...). On a
+    DTensor whose S is split, the rank whose shard holds ``slot`` writes it
+    into its local shard (a select on a split dim would gather a copy)."""
+    if not shd.is_dtensor(t) or not any(p.is_shard(1) for p in t.placements):
+        t[:, slot] = new[:, 0]
+        return
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    places = [Replicate() if p.is_shard(1) else p for p in t.placements]
+    new = (new.redistribute(t.device_mesh, places) if shd.is_dtensor(new)
+           else distribute_tensor(new, t.device_mesh, places, src_data_rank=None))
+    size = t.to_local().shape[1]
+    idx = shd.shard_index(t.device_mesh, [i for i, p in enumerate(t.placements)
+                                          if p.is_shard(1)])
+    if idx * size <= slot < (idx + 1) * size:
+        t.to_local()[:, slot - idx * size] = new.to_local()[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -30,28 +165,29 @@ NEG_INF = -1e30
 
 def init_attention(cfg, b: ParamBuilder) -> None:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    b.make("wq", (d, h * hd))
-    b.make("wk", (d, kv * hd))
-    b.make("wv", (d, kv * hd))
-    b.make("wo", (h * hd, d))
+    b.make("wq", (d, h * hd), ("embed", "heads_x_dim"))
+    b.make("wk", (d, kv * hd), ("embed", "kv_x_dim"))
+    b.make("wv", (d, kv * hd), ("embed", "kv_x_dim"))
+    b.make("wo", (h * hd, d), ("heads_x_dim", "embed"))
     if cfg.use_bias:
-        b.make("bq", (h * hd,), init="zeros")
-        b.make("bk", (kv * hd,), init="zeros")
-        b.make("bv", (kv * hd,), init="zeros")
-        b.make("bo", (d,), init="zeros")
+        b.make("bq", (h * hd,), ("heads_x_dim",), init="zeros")
+        b.make("bk", (kv * hd,), ("kv_x_dim",), init="zeros")
+        b.make("bv", (kv * hd,), ("kv_x_dim",), init="zeros")
+        b.make("bo", (d,), ("embed",), init="zeros")
 
 
 def init_mla(cfg, b: ParamBuilder) -> None:
     m = cfg.mla
     d, h = cfg.d_model, cfg.n_heads
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
-    b.make("wq_a", (d, m.q_lora_rank))
-    b.make("q_norm", (m.q_lora_rank,), init="ones")
-    b.make("wq_b", (m.q_lora_rank, h * qk))
-    b.make("wkv_a", (d, m.kv_lora_rank + m.qk_rope_head_dim))
-    b.make("kv_norm", (m.kv_lora_rank,), init="ones")
-    b.make("wkv_b", (m.kv_lora_rank, h * (m.qk_nope_head_dim + m.v_head_dim)))
-    b.make("wo", (h * m.v_head_dim, d))
+    b.make("wq_a", (d, m.q_lora_rank), ("embed", None))
+    b.make("q_norm", (m.q_lora_rank,), (None,), init="ones")
+    b.make("wq_b", (m.q_lora_rank, h * qk), (None, "heads_x_dim"))
+    b.make("wkv_a", (d, m.kv_lora_rank + m.qk_rope_head_dim), ("embed", None))
+    b.make("kv_norm", (m.kv_lora_rank,), (None,), init="ones")
+    b.make("wkv_b", (m.kv_lora_rank, h * (m.qk_nope_head_dim + m.v_head_dim)),
+           (None, "heads_x_dim"))
+    b.make("wo", (h * m.v_head_dim, d), ("heads_x_dim", "embed"))
 
 
 # ---------------------------------------------------------------------------
@@ -59,12 +195,16 @@ def init_mla(cfg, b: ParamBuilder) -> None:
 # ---------------------------------------------------------------------------
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
-          scale: float) -> torch.Tensor:
-    """q: (B,Sq,H,hd)  k,v: (B,Sk,KV,hd)  mask: broadcastable (B,1,Sq,Sk)."""
+          scale: float, reduce_logits: Optional[Callable] = None) -> torch.Tensor:
+    """q: (B,Sq,H,hd)  k,v: (B,Sk,KV,hd)  mask: broadcastable (B,1,Sq,Sk).
+    ``reduce_logits`` sums the logits of a head dim split across ranks."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, hd)
-    logits = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * scale
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float())
+    if reduce_logits is not None:
+        logits = reduce_logits(logits)
+    logits = logits * scale
     bias = torch.where(mask, 0.0, NEG_INF)                  # (B|1, 1, Sq, Sk)
     logits = logits + bias[:, :, None, :, :]                # -> (B, KV, G, Sq, Sk)
     probs = torch.softmax(logits, dim=-1)
@@ -93,10 +233,18 @@ def _ceil_pow2(n: int) -> int:
 def _project(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], heads: int,
              hd: int) -> torch.Tensor:
     B, S, _ = x.shape
-    y = (x @ w).reshape(B, S, heads, hd)
+    y = linear(x, w)
     if b is not None:
-        y = y + b.reshape(1, 1, heads, hd)
-    return y
+        y = y + b
+    if shd.is_dtensor(y):
+        # a split of heads*hd that the heads do not take (8 KV heads over 16
+        # ranks) cannot be unflattened: gather it first
+        split = [i for i, p in enumerate(y.placements) if p.is_shard(y.dim() - 1)]
+        if heads % math.prod(y.device_mesh.size(i) for i in split) != 0:
+            from torch.distributed.tensor import Replicate
+            y = y.redistribute(y.device_mesh, [Replicate() if i in split else p
+                                               for i, p in enumerate(y.placements)])
+    return y.reshape(B, S, heads, hd)
 
 
 def attend(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor,
@@ -120,17 +268,24 @@ def attend(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor,
         q = apply_rope(q, positions, cfg.rope_theta)
     Sk = k.shape[1]
     causal = kind == "causal"
+    seq_split = cfg.tp_mode == "sp" and S == Sk
+    if seq_split:
+        q = seq_shard_constraint(q)      # q stays sequence-sharded; K/V full
     if max(S, Sk) >= cfg.flash_min_seq:
-        out = flash_attention(q, k, v, causal, cfg.sliding_window if causal else 0,
-                              0, min(512, _ceil_pow2(S)), min(1024, _ceil_pow2(Sk)),
-                              hd ** -0.5)
+        def core(q, k, v, q_off):
+            return flash_attention(q, k, v, causal, cfg.sliding_window if causal else 0,
+                                   q_off, min(512, _ceil_pow2(S)), min(1024, _ceil_pow2(Sk)),
+                                   hd ** -0.5)
     else:
-        if causal:
-            mask = causal_mask(S, Sk, window=cfg.sliding_window, device=x.device)
-        else:
-            mask = torch.ones((1, 1, S, Sk), dtype=torch.bool, device=x.device)
-        out = _sdpa(q, k, v, mask, scale=hd ** -0.5)
-    out = out.reshape(B, S, h * hd) @ p["wo"]
+        def core(q, k, v, q_off):
+            Sq = q.shape[1]
+            if causal:
+                mask = causal_mask(Sq, Sk, q_off, cfg.sliding_window, device=q.device)
+            else:
+                mask = torch.ones((1, 1, Sq, Sk), dtype=torch.bool, device=q.device)
+            return _sdpa(q, k, v, mask, scale=hd ** -0.5)
+    out = _gqa_core(core, q, k, v, seq_split)
+    out = linear(out.reshape(B, S, h * hd), p["wo"])
     if "bo" in p:
         out = out + p["bo"]
     return out
@@ -144,7 +299,7 @@ def project_kv(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor
     v = _project(x, p["wv"], p.get("bv"), kv, hd)
     if cfg.rope:
         k = apply_rope(k, positions, cfg.rope_theta)
-    return k, v
+    return _constrain_kv(k), _constrain_kv(v)
 
 
 # ---------------------------------------------------------------------------
@@ -175,13 +330,16 @@ def decode_attend(cfg, p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor
 
     slot = min(cur_len % window if window else cur_len, S_cache - 1)
     k, v = cache["k"], cache["v"]
-    k[:, slot] = k_new[:, 0]
-    v[:, slot] = v_new[:, 0]
+    _write_slot(k, slot, k_new)
+    _write_slot(v, slot, v_new)
 
     n_valid = min(cur_len + 1, S_cache) if window else cur_len + 1
     valid = torch.arange(S_cache, device=x.device) < n_valid
-    out = _sdpa(q, k, v, valid[None, None, None, :], scale=hd ** -0.5)
-    out = out.reshape(B, 1, h * hd) @ p["wo"]
+    def core(q, k, v, _, reduce_logits=None):
+        return _sdpa(q, k, v, valid[None, None, None, :], hd ** -0.5, reduce_logits)
+    out = _gqa_core(core, q, k, v, False,
+                    hd_core=lambda q, k, v, red: core(q, k, v, 0, red))
+    out = linear(out.reshape(B, 1, h * hd), p["wo"])
     if "bo" in p:
         out = out + p["bo"]
     return out, {"k": k, "v": v}
@@ -194,36 +352,30 @@ def decode_attend(cfg, p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor
 def _mla_qkv(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor):
     m = cfg.mla
     B, S, _ = x.shape
-    q_lat = rmsnorm(x @ p["wq_a"], p["q_norm"])
-    q = (q_lat @ p["wq_b"]).reshape(B, S, cfg.n_heads,
+    q_lat = rmsnorm(linear(x, p["wq_a"]), p["q_norm"])
+    q = linear(q_lat, p["wq_b"]).reshape(B, S, cfg.n_heads,
                                     m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
-    kv_a = x @ p["wkv_a"]
+    kv_a = linear(x, p["wkv_a"])
     ckv, k_rope = torch.split(kv_a, [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
     ckv = rmsnorm(ckv, p["kv_norm"])
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
     return q_nope, q_rope, ckv, k_rope
 
 
-def _mla_wkv_b(cfg, p: Params) -> Tuple[torch.Tensor, torch.Tensor]:
-    """wkv_b (r, h*(nope+v)) -> its K part (r, h, nope) and V part (r, h, v)."""
+def _mla_wkv_b(cfg, wkv_b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """wkv_b (r, h*(nope+v)) -> its K part (r, h, nope) and V part (r, h, v);
+    h is whatever heads wkv_b holds (all, or a rank's share)."""
     m = cfg.mla
-    wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, cfg.n_heads,
-                               m.qk_nope_head_dim + m.v_head_dim)
+    wkv_b = wkv_b.reshape(m.kv_lora_rank, -1, m.qk_nope_head_dim + m.v_head_dim)
     return wkv_b[:, :, : m.qk_nope_head_dim], wkv_b[:, :, m.qk_nope_head_dim:]
 
 
-def _mla_attend_core(cfg, p: Params, q_nope, q_rope, ckv, k_rope, mask):
-    """Attention against the *compressed* cache (absorbed-matrix trick).
-
-    ckv: (B, Sk, r); k_rope: (B, Sk, rd); q_*: (B, Sq, h, .). The K side of
-    wkv_b is absorbed into the query, so logits are computed in the rank-r
-    space and per-head K/V never materialise.
-    """
+def _mla_core(cfg, wkv_b, q_nope, q_rope, ckv, k_rope, mask):
     m = cfg.mla
-    wk_b, wv_b = _mla_wkv_b(cfg, p)
+    wk_b, wv_b = _mla_wkv_b(cfg, wkv_b)
     q_eff = torch.einsum("bqhn,rhn->bqhr", q_nope.float(), wk_b.float())
     logits = torch.einsum("bqhr,bsr->bhqs", q_eff, ckv.float())
     logits = logits + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), k_rope.float())
@@ -233,6 +385,27 @@ def _mla_attend_core(cfg, p: Params, q_nope, q_rope, ckv, k_rope, mask):
     ctx = torch.einsum("bhqs,bsr->bqhr", probs, ckv.float())
     out = torch.einsum("bqhr,rhv->bqhv", ctx, wv_b.float())
     return out.to(q_nope.dtype)
+
+
+def _mla_attend_core(cfg, p: Params, q_nope, q_rope, ckv, k_rope, mask):
+    """Attention against the *compressed* cache (absorbed-matrix trick).
+
+    ckv: (B, Sk, r); k_rope: (B, Sk, rd); q_*: (B, Sq, h, .). The K side of
+    wkv_b is absorbed into the query, so logits are computed in the rank-r
+    space and per-head K/V never materialise. Under a mesh it runs on local
+    shards: batch over the DP axes, heads (and wkv_b's) over "model", the
+    compressed cache whole on every "model" rank.
+    """
+    mesh = _dist_mesh(q_nope, ckv)
+    if mesh is None:
+        return _mla_core(cfg, p["wkv_b"], q_nope, q_rope, ckv, k_rope, mask)
+    b = _batch_spec(mesh, q_nope.shape[0])
+    hs = "model" if cfg.n_heads % mesh.shape["model"] == 0 else None
+    q_spec, c_spec = (b, None, hs, None), (b, None, None)
+    fn = shd.on_shards(lambda qn, qr, c, kr, w: _mla_core(cfg, w, qn, qr, c, kr, mask),
+                       mesh, [q_spec, q_spec, c_spec, c_spec, (None, hs)],
+                       (shd.placements(mesh, q_spec),))
+    return fn(q_nope, q_rope, ckv, k_rope, p["wkv_b"])
 
 
 def mla_attend(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor,
@@ -247,20 +420,21 @@ def mla_attend(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor,
     m = cfg.mla
     q_nope, q_rope, ckv, k_rope = _mla_qkv(cfg, p, x, positions)
     if S >= cfg.flash_min_seq:
-        wk_b, wv_b = _mla_wkv_b(cfg, p)
+        wk_b, wv_b = _mla_wkv_b(cfg, p["wkv_b"])
         q_eff = torch.einsum("bqhn,rhn->bqhr", q_nope, wk_b)
         q_all = torch.cat([q_eff, q_rope], dim=-1)                 # (B,S,h,r+rd)
-        k_all = torch.cat([ckv, k_rope], dim=-1)[:, :, None, :]
-        v_all = ckv[:, :, None, :]
+        k_all = _constrain_kv(torch.cat([ckv, k_rope], dim=-1)[:, :, None, :])
+        v_all = _constrain_kv(ckv[:, :, None, :])
         scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-        ctx = flash_attention(q_all, k_all, v_all, kind == "causal", 0, 0,
-                              512, 1024, scale)                    # (B,S,h,r)
+        ctx = _gqa_core(lambda q, k, v, q_off: flash_attention(
+            q, k, v, kind == "causal", 0, q_off, 512, 1024, scale),
+            q_all, k_all, v_all, False)                            # (B,S,h,r)
         out = torch.einsum("bqhr,rhv->bqhv", ctx.float(), wv_b.float()).to(x.dtype)
     else:
         mask = causal_mask(S, S, device=x.device) if kind == "causal" \
             else torch.ones((1, 1, S, S), dtype=torch.bool, device=x.device)
         out = _mla_attend_core(cfg, p, q_nope, q_rope, ckv, k_rope, mask)
-    return out.reshape(B, S, cfg.n_heads * m.v_head_dim) @ p["wo"]
+    return linear(out.reshape(B, S, cfg.n_heads * m.v_head_dim), p["wo"])
 
 
 def mla_decode_attend(cfg, p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -272,12 +446,14 @@ def mla_decode_attend(cfg, p: Params, x: torch.Tensor, cache: Dict[str, torch.Te
     m = cfg.mla
     pos = torch.full((B, 1), cur_len, dtype=torch.int32, device=x.device)
     q_nope, q_rope, ckv_new, krope_new = _mla_qkv(cfg, p, x, pos)
+    q_nope = _constrain_kv(q_nope)
+    q_rope = _constrain_kv(q_rope)
     ckv, krope = cache["ckv"], cache["krope"]
     S_cache = ckv.shape[1]
     slot = min(cur_len, S_cache - 1)
-    ckv[:, slot] = ckv_new[:, 0]
-    krope[:, slot] = krope_new[:, 0]
+    _write_slot(ckv, slot, ckv_new)
+    _write_slot(krope, slot, krope_new)
     mask = (torch.arange(S_cache, device=x.device) <= cur_len)[None, None, None, :]
     out = _mla_attend_core(cfg, p, q_nope, q_rope, ckv, krope, mask)
-    out = out.reshape(B, 1, cfg.n_heads * m.v_head_dim) @ p["wo"]
+    out = linear(out.reshape(B, 1, cfg.n_heads * m.v_head_dim), p["wo"])
     return out, {"ckv": ckv, "krope": krope}

@@ -22,7 +22,6 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import torch_dtype
@@ -31,8 +30,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (ParamBuilder, Params, apply_mlp, apply_norm,
-                                       cross_entropy, init_mlp, init_norm, stack_params,
-                                       tree_index, tree_unbind)
+                                       cross_entropy, embed, init_mlp, init_norm, linear,
+                                       stack_params, stack_specs, tree_index, tree_unbind)
 
 Tree = Dict[str, Any]
 
@@ -44,12 +43,20 @@ Tree = Dict[str, Any]
 def init_model(cfg, generator: torch.Generator, device=None) -> Params:
     """Random params with the reference's tree paths and shapes, in
     ``cfg.dtype`` on ``device``, drawn on ``generator``'s device."""
+    return build_model(cfg, generator, device)[0]
+
+
+def build_model(cfg, generator: Optional[torch.Generator], device=None
+                ) -> Tuple[Params, Tree]:
+    """(params, logical-axis specs), as the reference's ``init_model``
+    returns them. On the ``meta`` device nothing is drawn (``generator`` may
+    be ``None``)."""
     dtype = torch_dtype(cfg)
     dev = resolve_device(device)
     b = ParamBuilder(generator, dtype, dev)
-    b.make("embed", (cfg.padded_vocab, cfg.d_model), scale=0.02)
+    b.make("embed", (cfg.padded_vocab, cfg.d_model), ("vocab", "embed"), scale=0.02)
     if cfg.learned_pos:
-        b.make("pos_embed", (cfg.max_pos, cfg.d_model), scale=0.02)
+        b.make("pos_embed", (cfg.max_pos, cfg.d_model), (None, "embed"), scale=0.02)
 
     plan = cfg.layer_plan()
     periods = []
@@ -74,13 +81,14 @@ def init_model(cfg, generator: torch.Generator, device=None) -> Params:
                     moe_mod.init_moe(cfg, fb, cfg.d_model, cfg.d_ff)
                 else:
                     init_mlp(cfg, fb, cfg.d_model, cfg.d_ff)
-        periods.append(pb.params)
-    b.params["blocks"] = stack_params(periods)
+        periods.append(pb)
+    b.params["blocks"] = stack_params([pb.params for pb in periods])
+    b.specs["blocks"] = stack_specs(periods[0].specs)
     del periods
 
     init_norm(cfg, b, "final_norm", cfg.d_model)
     if not cfg.tie_embeddings:
-        b.make("lm_head", (cfg.d_model, cfg.padded_vocab), scale=0.02)
+        b.make("lm_head", (cfg.d_model, cfg.padded_vocab), ("embed", "vocab"), scale=0.02)
 
     if cfg.enc_layers:
         eb = b.submodule("encoder")
@@ -91,18 +99,19 @@ def init_model(cfg, generator: torch.Generator, device=None) -> Params:
             attn_mod.init_attention(cfg, epb.submodule("attn"))
             init_norm(cfg, epb, "norm2", cfg.d_model)
             init_mlp(cfg, epb.submodule("ffn"), cfg.d_model, cfg.d_ff)
-            layers.append(epb.params)
-        eb.params["layers"] = stack_params(layers)
+            layers.append(epb)
+        eb.params["layers"] = stack_params([e.params for e in layers])
+        eb.specs["layers"] = stack_specs(layers[0].specs)
         init_norm(cfg, eb, "final_norm", cfg.d_model)
 
     if cfg.mtp:  # DeepSeek multi-token prediction: 1 extra attn block + proj
         mb = b.submodule("mtp")
-        mb.make("proj", (2 * cfg.d_model, cfg.d_model))
+        mb.make("proj", (2 * cfg.d_model, cfg.d_model), (None, "embed"))
         init_norm(cfg, mb, "norm1", cfg.d_model)
         attn_mod.init_attention(cfg, mb.submodule("attn"))
         init_norm(cfg, mb, "norm2", cfg.d_model)
         init_mlp(cfg, mb.submodule("ffn"), cfg.d_model, cfg.d_ff)
-    return b.params
+    return b.params, b.specs
 
 
 # ---------------------------------------------------------------------------
@@ -114,6 +123,8 @@ def _apply_slot(cfg, slot_plan, p, x, positions, mode, cache, cur_len,
     """Returns (x, new_cache_slot, aux_loss)."""
     mixer, ffn = slot_plan
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.tp_mode == "sp" and mode != "decode":
+        x = attn_mod.seq_shard_constraint(x)
     h = apply_norm(cfg, x, p["norm1"])
     new_cache: Dict[str, Any] = {}
 
@@ -188,7 +199,7 @@ def _ring_pack(cfg, k: torch.Tensor, v: torch.Tensor) -> Dict[str, torch.Tensor]
 def _mamba_prefill_state(cfg, p, h):
     """Recover final SSM + conv state after a full-sequence mixer pass."""
     S = h.shape[1]
-    xi, _ = torch.chunk(h @ p["in_proj"], 2, dim=-1)
+    xi, _ = mamba_mod.in_proj(h, p["in_proj"])
     xc = mamba_mod._conv_silu(cfg, p, xi)
     dt, Bm, _ = mamba_mod._ssm_params(cfg, p, xc)
     hh = mamba_mod._scan(*mamba_mod._discretize(p, dt, Bm, xc))
@@ -201,7 +212,7 @@ def _mamba_prefill_state(cfg, p, h):
 # ---------------------------------------------------------------------------
 
 def _embed_inputs(cfg, params, tokens, prefix_embeds, mode, cur_len=None):
-    x = F.embedding(tokens, params["embed"])
+    x = embed(tokens, params["embed"])
     if prefix_embeds is not None and mode != "decode":
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     B, S = x.shape[:2]
@@ -284,7 +295,7 @@ def forward(cfg, params: Params, tokens: torch.Tensor,
 
     x = apply_norm(cfg, x, params["final_norm"])
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x @ head
+    logits = linear(x, head)
 
     new_cache = None
     if mode == "prefill":
@@ -298,8 +309,9 @@ def mtp_logits(cfg, params: Params, hidden: torch.Tensor, tokens: torch.Tensor
                ) -> torch.Tensor:
     """DeepSeek MTP: predict token t+2 from (hidden_t, embed(token_{t+1}))."""
     p = params["mtp"]
-    nxt = F.embedding(torch.roll(tokens, -1, dims=1), params["embed"])
-    h = torch.cat([hidden, nxt.to(hidden.dtype)], dim=-1) @ p["proj"]
+    # torch.roll(tokens, -1, 1) as a concatenation, which DTensor takes
+    nxt = embed(torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1), params["embed"])
+    h = linear(torch.cat([hidden, nxt.to(hidden.dtype)], dim=-1), p["proj"])
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
     hh = apply_norm(cfg, h, p["norm1"])
@@ -307,7 +319,7 @@ def mtp_logits(cfg, params: Params, hidden: torch.Tensor, tokens: torch.Tensor
     hh = apply_norm(cfg, h, p["norm2"])
     h = h + apply_mlp(cfg, p["ffn"], hh)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ head
+    return linear(h, head)
 
 
 # ---------------------------------------------------------------------------

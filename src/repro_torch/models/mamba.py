@@ -19,30 +19,42 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import ParamBuilder, Params
+from repro_torch.models.layers import ParamBuilder, Params, linear, reduce_partial
 
 
 def init_mamba(cfg, b: ParamBuilder) -> None:
     d, di, st = cfg.d_model, cfg.d_inner, cfg.ssm_state
     dt_rank = cfg.resolved_dt_rank
-    b.make("in_proj", (d, 2 * di))
-    b.make("conv_w", (cfg.conv_width, di), scale=0.5)
-    b.make("conv_b", (di,), init="zeros")
-    b.make("x_proj", (di, dt_rank + 2 * st))
-    b.make("dt_proj", (dt_rank, di))
-    b.make("dt_bias", (di,), init="zeros")
-    b.make("A_log", (di, st), init="zeros")  # A = -exp(0) = -1
-    b.make("D", (di,), init="ones")
-    b.make("out_proj", (di, d))
+    b.make("in_proj", (d, 2 * di), ("embed", "d_inner"))
+    b.make("conv_w", (cfg.conv_width, di), (None, "d_inner"), scale=0.5)
+    b.make("conv_b", (di,), ("d_inner",), init="zeros")
+    b.make("x_proj", (di, dt_rank + 2 * st), ("d_inner", None))
+    b.make("dt_proj", (dt_rank, di), (None, "d_inner"))
+    b.make("dt_bias", (di,), ("d_inner",), init="zeros")
+    b.make("A_log", (di, st), ("d_inner", None), init="zeros")  # A = -exp(0) = -1
+    b.make("D", (di,), ("d_inner",), init="ones")
+    b.make("out_proj", (di, d), ("d_inner", "embed"))
+
+
+def in_proj(x: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(xi, z) = the two halves of ``x @ w``. With w's output dim split
+    over "model" (a DTensor), each half of w is split on its own first: a
+    rank's shard of x @ w straddles the halves, so chunking the product
+    would gather it whole, and its gradient, on every rank."""
+    if not any(pl.is_shard(1) for pl in getattr(w, "placements", ())):
+        return torch.chunk(linear(x, w), 2, dim=-1)
+    di = w.shape[-1] // 2
+    return tuple(linear(x, w[:, i * di:(i + 1) * di].redistribute(w.device_mesh, w.placements))
+                 for i in range(2))
 
 
 def _ssm_params(cfg, p: Params, xc: torch.Tensor):
     """xc: (B, S, di) post-conv activations -> dt, B_mat, C_mat (fp32)."""
     st = cfg.ssm_state
     dt_rank = cfg.resolved_dt_rank
-    proj = (xc @ p["x_proj"]).float()
+    proj = reduce_partial(linear(xc, p["x_proj"])).float()
     dt, Bm, Cm = torch.split(proj, [dt_rank, st, st], dim=-1)
-    dt = F.softplus(dt @ p["dt_proj"].float() + p["dt_bias"].float())   # (B,S,di)
+    dt = F.softplus(linear(dt, p["dt_proj"].float()) + p["dt_bias"].float())   # (B,S,di)
     return dt, Bm, Cm
 
 
@@ -102,6 +114,15 @@ def _scan(Abar: torch.Tensor, Bx: torch.Tensor) -> torch.Tensor:
     at 700 W (``chip_smoke.py`` phase 6 times both; PERF.md): the loop is
     bound by the host's launches, the log-step scan by its ~6 GB a round of
     traffic over 10 rounds."""
+    places = getattr(Abar, "placements", None)
+    if places is not None:
+        # DTensors: the recurrence is elementwise across batch and d_inner,
+        # so each rank scans its own shards
+        from repro_torch.launch import context
+        from repro_torch.launch import sharding as shd
+        mesh = context.current_mesh()
+        spec = shd.spec_of(mesh, places, Abar.dim())
+        return shd.on_shards(_scan, mesh, [spec, spec], (list(places),))(Abar, Bx)
     if torch.is_grad_enabled() and (Abar.requires_grad or Bx.requires_grad):
         return _ScanFn.apply(Abar, Bx)
     return _scan_loop(Abar, Bx)
@@ -121,14 +142,14 @@ def _conv_silu(cfg, p: Params, xi: torch.Tensor) -> torch.Tensor:
 
 def mamba_mixer(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
     """Full-sequence mixer (train / prefill). x: (B, S, d) -> (B, S, d)."""
-    xi, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)                   # (B,S,di)
+    xi, z = in_proj(x, p["in_proj"])                                    # (B,S,di)
     xc = _conv_silu(cfg, p, xi)
     dt, Bm, Cm = _ssm_params(cfg, p, xc)
     h = _scan(*_discretize(p, dt, Bm, xc))
     y = torch.einsum("bsnt,bst->bsn", h, Cm)
     y = y + p["D"].float() * xc.float()
     y = y * F.silu(z).float()
-    return y.to(x.dtype) @ p["out_proj"]
+    return linear(y.to(x.dtype), p["out_proj"])
 
 
 def init_mamba_state(cfg, batch: int, dtype=torch.float32, device=None
@@ -146,7 +167,7 @@ def mamba_decode(cfg, p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single-token step. x: (B, 1, d). Writes the new state into ``state``'s
     tensors in place (the reference returns new arrays) and returns them."""
-    xi, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)                   # (B,1,di)
+    xi, z = in_proj(x, p["in_proj"])                                    # (B,1,di)
     window = torch.cat([state["conv"], xi.to(state["conv"].dtype)], dim=1)  # (B, W, di)
     xc = _conv_silu(cfg, p, window)[:, -1:]                            # (B,1,di)
 
@@ -156,7 +177,7 @@ def mamba_decode(cfg, p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor]
     y = torch.einsum("bnt,bt->bn", h, Cm[:, 0])                        # (B,di)
     y = y + p["D"].float() * xc[:, 0].float()
     y = y * F.silu(z[:, 0]).float()
-    out = (y.to(x.dtype) @ p["out_proj"])[:, None]
+    out = linear(y.to(x.dtype), p["out_proj"])[:, None]
     state["ssm"].copy_(h)
     state["conv"].copy_(window[:, 1:])
     return out, state

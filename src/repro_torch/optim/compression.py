@@ -3,9 +3,12 @@ the reference's ``repro/optim/compression.py``.
 
 Numerics: per-tensor symmetric scale, residual carried forward (error
 feedback) so quantization noise averages out instead of biasing the
-trajectory. ``compress_grads`` is the pure numeric transform usable inside
-any train step (it simulates the at-wire quantization). ``quantized_psum``,
-which sends int8 over a collective, waits for the distributed port.
+trajectory. Two entry points:
+- ``compress_grads``: pure numeric transform usable inside any train step
+  (it simulates the at-wire quantization);
+- ``quantized_psum``: a sum over a ``torch.distributed`` group that sends
+  int8 codes (as int32 accumulators) instead of the values, for custom DP
+  loops.
 """
 from __future__ import annotations
 
@@ -39,8 +42,15 @@ def init_error_state(grads: Any) -> Any:
                     grads)
 
 
-def quantized_psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
-    """int8-on-the-wire sum over a data-parallel group: not ported yet."""
-    raise NotImplementedError(
-        "quantized_psum needs a process group; it belongs to the distributed "
-        "port (ROADMAP Queue 1, item 7)")
+def quantized_psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """int8-on-the-wire sum of ``x`` over ``group`` (the default group when
+    None): quantize locally with a shared max-scale (an all-reduce MAX of
+    max|x|, / 127 + 1e-12), sum the round-half-even codes clipped to +-127
+    as int32 accumulators (an all-reduce SUM), dequantize. Returns fp32."""
+    import torch.distributed as dist
+    amax = torch.max(torch.abs(x)).float()
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    scale = amax / 127.0 + 1e-12
+    q = torch.clamp(torch.round(x.float() / scale), -127, 127).to(torch.int32)
+    dist.all_reduce(q, op=dist.ReduceOp.SUM, group=group)
+    return q.float() * scale

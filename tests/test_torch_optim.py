@@ -139,9 +139,27 @@ def test_compress_grads_matches_reference():
         _assert_trees(te, jax.tree_util.tree_map(np.asarray, je), 0, 0)
 
 
-def test_quantized_psum_waits_for_the_distributed_port():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        quantized_psum(torch.ones(4), "data")
+@pytest.mark.skipif(not hasattr(jax, "shard_map"),
+                    reason="jax.shard_map unavailable in this JAX version")
+def test_quantized_psum_waits_for_the_distributed_port(tmp_path):
+    """The distributed port is here: on a one-rank gloo group,
+    ``quantized_psum`` is ``tests/test_optim.py``'s single-device case (the
+    identity up to quantization noise) and equals the reference's value."""
+    import datetime
+    import torch.distributed as dist
+    from jax.sharding import PartitionSpec as P
+    x = np.linspace(-3, 3, 128, dtype=np.float32)
+    want = jax.shard_map(lambda v: jcomp.quantized_psum(v, "d"),
+                         mesh=jax.make_mesh((1,), ("d",)), in_specs=P(), out_specs=P(),
+                         check_vma=False)(jnp.asarray(x))
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        got = quantized_psum(torch.as_tensor(x))
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), x, atol=0.05)
 
 
 # tests/test_optim.py's first four cases, on the port
