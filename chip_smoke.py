@@ -85,7 +85,26 @@ Phases, each of which must pass:
    mixtral-8x7b x decode_32k on a fake 16x16 group, in a host-only
    subprocess: per-device flops, eager op bytes, argument bytes,
    collective bytes by kind, the H100 roofline terms and each cell's
-   seconds.
+   seconds;
+9. the entry points (``repro_torch.examples`` and ``launch.serve``), each
+   path's kernel launches counted from 0 and each kernel of it required to
+   launch: (a) ``quickstart --full`` for SDXL-lite (latents 64²/96²/128²,
+   patch 32, 29 patches) and SD3-lite (32²/48²/64², patch 16): three
+   requests at steps 0, 10 and 30 batched against each alone through both
+   kernels, every request at PSNR > 80 and those at steps 10 and 30 at max
+   |batched - solo| < 1e-4, whether each is bitwise equal, and the
+   ``split_kv`` each attention call took batched and alone; then the same
+   for two requests at the smallest side beside one at the middle side, so
+   that a batched attention group has B = 2 against B = 1 alone, and at
+   least one batched group must take another ``split_kv`` than alone; (b) ``python
+   -m repro_torch.launch.serve --cache`` (real clock): completed + dropped
+   = submitted; (c) ``serve_hybrid_resolution --full`` on 2 s of Poisson
+   arrivals: every image finite and of its size; (d) ``train_small_lm``
+   (reduced internlm2-1.8b, fp32, 8 steps) each loss against the CPU's at
+   1e-4, the loss falling, the restore at step 8; (e) the sim-clock demos
+   (``slo_scheduler_demo.rows`` at qps 8 and 24 for 10 s, ``serve_cluster``'s
+   policies on 5 s) equal on the card and the CPU; (f)
+   ``calibrate_cache_hit_model --full``: its fit beside the checked-in one.
 
 Every comparison phase runs with TF32 off for cuDNN convs and cuBLAS matmuls.
 The last line is ``{"ok": true, "device": {...}}``; without CUDA, or if any
@@ -93,7 +112,9 @@ phase fails, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import re
@@ -126,6 +147,12 @@ from repro_torch.core.serving import EngineConfig, PatchedServeEngine  # noqa: E
 from repro_torch.core.stitcher import gather_halo  # noqa: E402
 from repro_torch.data import TokenPipeline  # noqa: E402
 from repro_torch.distributed.elastic import ElasticConfig, ElasticTrainer  # noqa: E402
+from repro_torch.examples import calibrate_cache_hit_model as calibrate  # noqa: E402
+from repro_torch.examples import quickstart as qs  # noqa: E402
+from repro_torch.examples import serve_cluster as cluster_example  # noqa: E402
+from repro_torch.examples import serve_hybrid_resolution as hybrid  # noqa: E402
+from repro_torch.examples import slo_scheduler_demo as slo_demo  # noqa: E402
+from repro_torch.examples import train_small_lm as train_example  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.groupnorm_stitch import (  # noqa: E402
     gn_partials, gn_stitch, groupnorm_stitch)
@@ -135,6 +162,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
     ref_attention, ref_gn_finalize, ref_gn_partials, ref_groupnorm_stitch)
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.launch import context as ctx  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import sharding as shd  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
@@ -1683,14 +1711,217 @@ def phase_dist(dev, smi: str) -> None:
     log(f"[dist] phase 8 in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 9
+# ---------------------------------------------------------------------------
+
+def entry_run(name: str, fn, kernels=tuple(KERNELS)) -> tuple:
+    """(result, launches) of one entry point's call, the counts set to 0
+    just before it and read just after; each kernel in ``kernels`` must have
+    launched."""
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = launches()
+    check_gn_kernels()
+    missing = [k for k in kernels if counts[k] <= 0]
+    if missing:
+        raise RuntimeError(f"{name}: {missing} not launched: {counts}")
+    log(f"[entry] {name}: launches {counts}, {time.perf_counter() - t0:.1f} s")
+    return out, counts
+
+
+def attention_splits(run) -> tuple:
+    """Runs ``run()`` (one ``quickstart.run``) while recording each
+    attention call's ``split_kv``: the set taken in the batched step, and
+    per request the set taken alone (each ``sampler_step`` call starts a
+    new segment)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.patch_attention import sm_count
+    segments: list = []
+    attention, step = ops.patch_attention, qs.sampler_step
+
+    def rec_attention(q, k, v):
+        B, S, H, D = q.shape
+        segments[-1].add((B, S, split_kv(B, S, H, sm_count(q.device.index or 0),
+                                         block_q(q.dtype, D))))
+        return attention(q, k, v)
+
+    def rec_step(*args, **kw):
+        segments.append(set())
+        return step(*args, **kw)
+
+    ops.patch_attention, qs.sampler_step = rec_attention, rec_step
+    try:
+        out = run()
+    finally:
+        ops.patch_attention, qs.sampler_step = attention, step
+    return out, sorted(segments[0]), [sorted(s) for s in segments[1:]]
+
+
+# two requests at the smallest side beside one at the middle side: the
+# smallest side's batched attention group has B = 2 against B = 1 alone
+PAIR = {"unet": [(96, 96), (64, 64), (64, 64)], "dit": [(48, 48), (32, 32), (32, 32)]}
+
+
+def entry_quickstart_run(dev, kind: str, sides=None) -> tuple:
+    """One ``quickstart.run`` at full width through both kernels, held to
+    quickstart's bars: (output, launches, batched splits, alone splits)."""
+    tag = f"quickstart --full --kind {kind}" + (f" on {sides}" if sides else "")
+    (out, batched, alone), counts = entry_run(
+        tag, lambda: attention_splits(lambda: qs.run(kind, full=True, device=dev, sides=sides)),
+        kernels=tuple(KERNELS) if kind == "unet" else ("patch_attention",))
+    csp, name = out["csp"], out["cfg"].name
+    log(f"[entry quickstart] {name}: P={csp.total} p={csp.patch} groups={csp.n_groups}; "
+        f"attention (B, S, split_kv) batched {batched}, alone {alone}")
+    for r in out["rows"]:
+        log(f"[entry quickstart] {name} request {r['request']} {r['resolution']} step "
+            f"{r['step']}: max |batched - solo| = {r['max_abs_err']:.3e} PSNR "
+            f"{r['psnr']:.2f} dB bitwise {r['bitwise']}")
+    qs.check(out["rows"], full=True)
+    log(f"[entry quickstart] {name}: every request bitwise equal: "
+        f"{all(r['bitwise'] for r in out['rows'])}")
+    return out, counts, batched, alone
+
+
+def entry_quickstart(dev) -> dict:
+    """(a) ``quickstart --full`` for SDXL-lite and SD3-lite: batched against
+    each request alone through both kernels, held to quickstart's bars, on
+    the default sides and on ``PAIR``."""
+    counts = {}
+    for kind in ("unet", "dit"):
+        out, counts[f"quickstart_{kind}"], _, _ = entry_quickstart_run(dev, kind)
+        name = out["cfg"].name
+        # the same without the kernels: what batching alone does to exactness
+        plain = qs.run(kind, full=True, device=dev, use_kernels=False)
+        log(f"[entry quickstart] {name} plain path, batched against alone: "
+            + "; ".join(f"step {r['step']} max {r['max_abs_err']:.3e} PSNR {r['psnr']:.2f} "
+                        f"bitwise {r['bitwise']}" for r in plain["rows"]))
+        kern = [max_err(a, b, 1e-3, f"{name} request {i} kernels against plain")
+                for i, (a, b) in enumerate(zip(out["batched"], plain["batched"]))]
+        log(f"[entry quickstart] {name} batched, kernels against plain: max abs "
+            f"err {[f'{e:.3e}' for e in kern]} (tol 1e-3)")
+        del out, plain
+        out, counts[f"quickstart_{kind}_pair"], batched, alone = entry_quickstart_run(
+            dev, kind, PAIR[kind])
+        changed = [(B, S, n, sorted({a[2] for seg in alone for a in seg if a[1] == S}))
+                   for B, S, n in batched
+                   if any(a[1] == S and a[2] != n for seg in alone for a in seg)]
+        log(f"[entry quickstart] {name} on {PAIR[kind]}: batched groups whose split_kv "
+            f"differs from alone (B, S, batched, alone): {changed}")
+        if not changed:
+            raise RuntimeError(f"{name} on {PAIR[kind]}: every batched attention group took "
+                               "the split_kv it takes alone")
+        del out
+        torch.cuda.empty_cache()
+    return counts
+
+
+def entry_serve(dev) -> dict:
+    """(b) ``launch.serve --cache`` and (c) ``serve_hybrid_resolution
+    --full`` on the card, real clock: every request accounted for and every
+    image finite and of its request's size."""
+    counts = {}
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        m, counts["launch_serve"] = entry_run(
+            "launch.serve --cache", lambda: serve_cli.main(["--cache", "--duration", "2"]))
+    log(printed.getvalue().rstrip())
+    submitted = int(re.search(r"requests=(\d+)", printed.getvalue()).group(1))
+    if m.completed < 1 or m.completed + m.dropped != submitted:
+        raise RuntimeError(f"launch.serve: {m.completed} completed, {m.dropped} dropped "
+                           f"of {submitted}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out, counts["serve_hybrid_full"] = entry_run(
+            "serve_hybrid_resolution --full",
+            lambda: hybrid.main(["--full", "--duration", "2", "--out", f"{tmp}/img.npy"]))
+    m, wl, eng = out["metrics"], out["workload"], out["engine"]
+    if m.completed < 1 or m.completed + m.dropped != len(wl):
+        raise RuntimeError(f"serve_hybrid: {m.completed} completed, {m.dropped} dropped "
+                           f"of {len(wl)}")
+    by_rid = {r.rid: r for r in wl}
+    for rid, img in eng.outputs.items():
+        h, w = by_rid[rid].resolution
+        if img.shape != (8 * h, 8 * w, 3) or not np.all(np.isfinite(img)):
+            raise RuntimeError(f"serve_hybrid request {rid}: image {img.shape}")
+    log(f"[entry serve] serve_hybrid --full: submitted={len(wl)} completed={m.completed} "
+        f"dropped={m.dropped} SLO={m.slo_satisfaction:.3f} steps={len(m.step_latencies)} "
+        f"median step ms={1e3 * float(np.median(m.step_latencies)):.3f} images "
+        f"{len(eng.outputs)} finite")
+    del out, eng
+    torch.cuda.empty_cache()
+    return counts
+
+
+def entry_train() -> None:
+    """(d) ``train_small_lm`` (reduced internlm2-1.8b, fp32, 8 steps) on the
+    card against the same steps on the CPU."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        card = train_example.main(["--ckpt", f"{tmp}/card"])
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = train_example.main(["--device", "cpu", "--ckpt", f"{tmp}/cpu"])
+        host_s = time.perf_counter() - t0
+    errs = [abs(a - b) / abs(b) for a, b in zip(card["losses"], host["losses"])]
+    log(f"[entry train] losses card {[round(x, 6) for x in card['losses']]} ({card_s:.1f} s), "
+        f"cpu {[round(x, 6) for x in host['losses']]} ({host_s:.1f} s); max rel err "
+        f"{max(errs):.3e} (tol 1e-4); restored step {card['restored_step']}")
+    if max(errs) > 1e-4 or card["restored_step"] != 8 or not card["losses"][-1] < card["losses"][0]:
+        raise RuntimeError("train_small_lm on the card: losses or restore off")
+
+
+def same(a, b) -> bool:
+    return json.dumps(a, sort_keys=True, default=str) == json.dumps(b, sort_keys=True, default=str)
+
+
+def entry_sim(dev) -> None:
+    """(e) the sim-clock demos with their tiny model on the card and on the
+    CPU: deterministic, so equal."""
+    t0 = time.perf_counter()
+    rows = {d: slo_demo.rows([8.0, 24.0], 10.0, device=d) for d in (dev, "cpu")}
+    if rows[dev] != rows["cpu"]:
+        raise RuntimeError(f"slo_scheduler_demo rows differ: {rows}")
+    log(f"[entry sim] slo_scheduler_demo rows (qps, slo, fcfs, same-res) {rows[dev]}, "
+        f"card == cpu")
+    pol = {d: cluster_example.policies(cut=5.0, device=d) for d in (dev, "cpu")}
+    if not same(pol[dev], pol["cpu"]):
+        raise RuntimeError("serve_cluster policies differ between the card and the CPU")
+    log(f"[entry sim] serve_cluster policies on 5 s: summaries card == cpu "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def entry_calibrate(dev) -> dict:
+    """(f) ``calibrate_cache_hit_model --full``: the fit beside the
+    checked-in one (a measurement, not a gate)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        _, counts = entry_run("calibrate_cache_hit_model --full",
+                              lambda: calibrate.main(["--full", "--out", f"{tmp}/cal.json"]))
+    return {"calibrate_full": counts}
+
+
+def phase_entry(dev) -> dict:
+    """Phase 9: the entry points. Returns each path's kernel launches."""
+    t0 = time.perf_counter()
+    counts = entry_quickstart(dev)
+    counts.update(entry_serve(dev))
+    entry_train()
+    entry_sim(dev)
+    counts.update(entry_calibrate(dev))
+    log(f"[entry] phase 9 in {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 SHAPE_KEYS = ("level", "P", "p", "C", "B", "S", "H", "D", "dtype", "exact", "n_split")
 
 
-def kernels_line(results: dict, main_launches: dict, fleet: dict) -> dict:
+def kernels_line(results: dict, main_launches: dict, fleet: dict, entry: dict) -> dict:
     """One entry per kernel: the fp32 case at the largest main-path shape,
     with the largest fp32 error over all its cases; ``launches`` from the
-    main path's run (phase 4), ``fleet_launches`` from each fleet run, and
-    for GroupNorm+stitch the fleet's new patch sides (``fleet_shapes``)."""
+    main path's run (phase 4), ``fleet_launches`` from each fleet run,
+    ``entry_launches`` from each entry point's run (phase 9), and for
+    GroupNorm+stitch the fleet's new patch sides (``fleet_shapes``)."""
     out = []
     for name, (_, source, replaces) in KERNELS.items():
         rows = [r for r in results[name] if r["dtype"] == "float32"]
@@ -1703,7 +1934,8 @@ def kernels_line(results: dict, main_launches: dict, fleet: dict) -> dict:
                     "library_ms": pick["library_ms"],
                     "shape": {k: v for k, v in pick.items() if k in SHAPE_KEYS},
                     "fleet_launches": {policy: counts[name]
-                                       for policy, counts in fleet["launches"].items()}})
+                                       for policy, counts in fleet["launches"].items()},
+                    "entry_launches": {path: counts[name] for path, counts in entry.items()}})
         if name == "groupnorm_stitch":
             out[-1]["fleet_shapes"] = [
                 {k: v for k, v in r.items()
@@ -1730,8 +1962,9 @@ def main() -> int:
     phase_lm(dev, smi)
     phase_train(dev, smi)
     phase_dist(dev, smi)
+    entry = phase_entry(dev)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps(kernels_line(results, main_launches, fleet)))
+    log(json.dumps(kernels_line(results, main_launches, fleet, entry)))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

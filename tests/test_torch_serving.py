@@ -245,8 +245,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torc
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or
-             m.startswith(('jax.', 'repro.')))
+bad = sorted(m for m in sys.modules if m in ('jax', 'repro', 'benchmarks') or
+             m.startswith(('jax.', 'repro.', 'benchmarks.')))
 assert not bad, bad
 assert len(names) >= 20, names
 print(len(names))
