@@ -11,7 +11,8 @@ Phases, each of which must pass:
    take: the largest of bytes over 3.35 TB/s and each kind of operation over
    its peak (GN-stitch: flops on CUDA cores; attention: the tensor-core MMAs
    of its route and the exponentials), each row's ``bound_by`` naming the
-   term (the kernels line keeps "bytes" or "operations"). GN-stitch is the
+   term (the kernels line keeps "bytes" or "operations"); attention at the
+   UNet's D = 32 and at SD3-lite's own D = 16. GN-stitch is the
    whole ``fused_groupnorm_stitch`` call (partial sums, then the stitch),
    timed inside a CUDA graph, which also shows it makes no host round trip;
    its two kernels are timed alone as well;
@@ -104,7 +105,17 @@ Phases, each of which must pass:
    1e-4, the loss falling, the restore at step 8; (e) the sim-clock demos
    (``slo_scheduler_demo.rows`` at qps 8 and 24 for 10 s, ``serve_cluster``'s
    policies on 5 s) equal on the card and the CPU; (f)
-   ``calibrate_cache_hit_model --full``: its fit beside the checked-in one.
+   ``calibrate_cache_hit_model --full``: its fit beside the checked-in one;
+10. dtype: SD3-lite at full width and depth with ``dtype="bfloat16"`` (bf16
+   weights; the latents and the timestep embedding are fp32, and every
+   product promotes to fp32 as jnp does, so the attention kernel runs its
+   fp32 instance at D = 16), beside the same weights in fp32: three
+   ``PatchedServeEngine._denoise_step`` calls from step 40 of 50 on latents
+   32²/48²/64² at patch 16 (29 patches) and on 48² + 2 × 32² (a B = 2
+   attention group), the patch cache off and then on, the kernel route
+   against the plain route at 1e-4 and PSNR > 80, the attention kernel's
+   launches above 0, every latent finite and fp32; step ms and peak device
+   memory of both dtypes beside phase 3's fp32 SD3-lite step.
 
 Every comparison phase runs with TF32 off for cuDNN convs and cuBLAS matmuls.
 The last line is ``{"ok": true, "device": {...}}``; without CUDA, or if any
@@ -148,6 +159,7 @@ from repro_torch.core.stitcher import gather_halo  # noqa: E402
 from repro_torch.data import TokenPipeline  # noqa: E402
 from repro_torch.distributed.elastic import ElasticConfig, ElasticTrainer  # noqa: E402
 from repro_torch.examples import calibrate_cache_hit_model as calibrate  # noqa: E402
+from repro_torch.examples.common import psnr  # noqa: E402
 from repro_torch.examples import quickstart as qs  # noqa: E402
 from repro_torch.examples import serve_cluster as cluster_example  # noqa: E402
 from repro_torch.examples import serve_hybrid_resolution as hybrid  # noqa: E402
@@ -371,13 +383,15 @@ def phase_kernels(dev) -> dict:
             for row in gn_rows(dev, gen, level, C, res, 32 // f, dtype, (True, False)):
                 results["groupnorm_stitch"].append(row)
                 log(f"[gn_stitch] {json.dumps(row)}")
-    # attention at the UNet's level-1 sequences (D=32) and SD3-lite's (D=16);
+    # attention at the UNet's level-1 sequences (D=32) and SD3-lite's (D=16,
+    # B=1 at each of phase 10's sides);
     # q, k, v are strided views of one (B, S, 3, H, D) projection. B=1 is what
     # the main path runs (one request per resolution group), each of its three
     # S taking the split-KV path.
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for B, S, D in ((1, 1024, 32), (1, 2304, 32), (1, 4096, 32), (2, 1024, 32),
-                    (2, 2304, 32), (2, 4096, 32), (2, 1024, 16), (2, 4096, 16)):
+                    (2, 2304, 32), (2, 4096, 32), (1, 1024, 16), (1, 2304, 16),
+                    (1, 4096, 16), (2, 1024, 16), (2, 4096, 16)):
         H = 4
         for dtype in (torch.float32, torch.bfloat16):
             qkv = torch.randn(B, S, 3, H, D, generator=gen).to(dev, dtype)
@@ -474,8 +488,10 @@ def profile_step(fn, n: int = 3) -> None:
         f"{names.count('cudaStreamSynchronize') / n:.1f} cudaStreamSynchronize")
 
 
-def phase_step(dev) -> None:
+def phase_step(dev) -> dict:
+    """Returns each model's kernel-route step ms."""
     rng = np.random.default_rng(1)
+    step_ms = {}
     cases = ((SDXL_LITE, CHIP_RES, 36), (SD3_LITE, [(32, 32), (64, 64)], 16))
     for cfg, res, per_step in cases:
         params = init_diffusion(cfg, torch.Generator().manual_seed(0), device=dev)
@@ -501,8 +517,10 @@ def phase_step(dev) -> None:
         log(f"[step] {cfg.name} res={res} P={csp.total} p={csp.patch} kernel launches/step="
             f"{per_step} max_abs_err={err:.3e} (tol 1e-3) step ms: kernels {ms[True]:.3f} "
             f"plain {ms[False]:.3f}")
+        step_ms[cfg.name] = ms[True]
         if cfg.kind == "unet":
             profile_step(lambda: sampler_step(cfg, params, csp, patches, steps, 50, text))
+    return step_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1913,14 +1931,117 @@ def phase_entry(dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10
+# ---------------------------------------------------------------------------
+
+# SD3-lite's sides at patch 16 (4 + 9 + 16 = 29 patches), and 48² + 2 x 32²,
+# whose 32² attention group has B = 2
+DTYPE_LADDER = [(32, 32), (48, 48), (64, 64)]
+DTYPE_SIDES = (DTYPE_LADDER, [(48, 48), (32, 32), (32, 32)])
+
+
+def dtype_steps(dev, cfg, params, sides, use_cache: bool, n_steps: int = 3) -> tuple:
+    """``n_steps`` engine steps of ``cfg`` on one request per side, from step
+    40 of 50, the launch counts set to 0 just before and read just after:
+    (latents, step ms, launches, cache savings per step)."""
+    ecfg = EngineConfig(clock="real", use_cache=use_cache, cache_capacity=512, seed=3)
+    eng = PatchedServeEngine(cfg, params, ecfg, dict.fromkeys(DTYPE_LADDER, 1.0), DTYPE_LADDER,
+                             device=dev)
+    reqs = [Request(rid=i, resolution=r, arrival=0.0, slo=1e9, total_steps=50, steps_done=40,
+                    prompt=f"prompt-{i}") for i, r in enumerate(sides)]
+    for r in reqs:
+        eng._prepare(r)
+    reset_launches()
+    ms, savings = [], []
+    for _ in range(n_steps):
+        saved, t = timed_step(lambda: eng._denoise_step(reqs))
+        ms.append(t)
+        savings.append(saved)
+    counts = launches()
+    check_gn_kernels()
+    return [r.latent for r in reqs], ms, counts, savings
+
+
+def dtype_timing(dev, params: dict, n: int = 5) -> dict:
+    """dtype -> (kernel-route step ms, the median of ``n`` steps after one
+    warm step; peak device memory in MiB above what was allocated before the
+    run), cache off on the 29-patch composition, in turns fp32, bf16, bf16,
+    fp32."""
+    ms = {dtype: [] for dtype in params}
+    peak = dict.fromkeys(params, 0.0)
+    for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, step_ms, _, _ = dtype_steps(dev, dataclasses.replace(SD3_LITE, dtype=dtype),
+                                       params[dtype], DTYPE_LADDER, False, n_steps=n + 1)
+        ms[dtype] += step_ms[1:]
+        peak[dtype] = max(peak[dtype], (torch.cuda.max_memory_allocated(dev) - before) / 2 ** 20)
+    return {dtype: (float(np.median(ms[dtype])), peak[dtype]) for dtype in params}
+
+
+def phase_dtype(dev, smi: str, sd3_step_ms: float) -> dict:
+    """Phase 10: SD3-lite with bf16 weights, and the same draws in fp32
+    beside it, through the engine, kernel route against plain route.
+    Returns the kernel route's launches per run."""
+    t0 = time.perf_counter()
+    params = {dtype: init_diffusion(dataclasses.replace(SD3_LITE, dtype=dtype),
+                                    torch.Generator().manual_seed(0), device=dev)
+              for dtype in ("float32", "bfloat16")}
+    counts, lats = {}, {}
+    for dtype, sides, use_cache in itertools.product(params, DTYPE_SIDES, (False, True)):
+        base = dataclasses.replace(SD3_LITE, dtype=dtype)
+        tag = f"sd3-lite dtype={dtype} sides={[h for h, _ in sides]} cache={use_cache}"
+        runs = {use: dtype_steps(dev, dataclasses.replace(base, use_kernels=use), params[dtype],
+                                 sides, use_cache) for use in (True, False)}
+        (got, ms, n, saved), (want, plain_ms, plain_n, plain_saved) = runs[True], runs[False]
+        for i, (a, b) in enumerate(zip(got, want)):
+            if {a.dtype, b.dtype} != {torch.float32} or not (
+                    torch.isfinite(a).all() and torch.isfinite(b).all()):
+                raise RuntimeError(f"{tag} request {i}: latents {a.dtype}/{b.dtype}, "
+                                   "not finite fp32")
+        err = max(max_err(a, b, 1e-4, f"{tag} request {i} kernels against plain")
+                  for i, (a, b) in enumerate(zip(got, want)))
+        db = min(psnr(a, b) for a, b in zip(got, want))
+        if db <= 80:
+            raise RuntimeError(f"{tag}: PSNR {db:.2f} dB of kernels against plain <= 80")
+        if n["patch_attention"] <= 0 or sum(plain_n.values()) != 0:
+            raise RuntimeError(f"{tag}: launches kernel route {n}, plain route {plain_n}")
+        n_patches = sum(h * w for h, w in sides) // 16 ** 2
+        counts[f"{dtype}_{n_patches}p_cache_{'on' if use_cache else 'off'}"] = n
+        lats[(dtype, tuple(sides), use_cache)] = got
+        log(f"[dtype] {tag}: max |kernels - plain| {err:.3e} (tol 1e-4) PSNR {db:.2f} dB; "
+            f"launches {n}, plain {plain_n}; step ms kernels {[round(x, 3) for x in ms]} "
+            f"plain {[round(x, 3) for x in plain_ms]}; share of patches reused per step "
+            f"and block, kernels {[sorted(set(x)) for x in saved]} plain "
+            f"{[sorted(set(x)) for x in plain_saved]}")
+    for (dtype, sides, use_cache), got in lats.items():
+        if dtype == "bfloat16":
+            d = max(float((a - b).abs().max())
+                    for a, b in zip(got, lats[("float32", sides, use_cache)]))
+            log(f"[dtype] sides={[h for h, _ in sides]} cache={use_cache}: max |bf16 weights - "
+                f"fp32 weights| over the latents {d:.3e} (not a gate)")
+    timing = dtype_timing(dev, params)
+    log(f"[dtype] {smi}: SD3-lite engine step on 32²/48²/64², cache off, kernel route "
+        f"(median of 10 steps in turns): bf16 weights {timing['bfloat16'][0]:.3f} ms, fp32 "
+        f"weights {timing['float32'][0]:.3f} ms; phase 3's fp32 sampler_step on 32²+64² "
+        f"{sd3_step_ms:.3f} ms; peak device memory of the run, MiB: bf16 "
+        f"{timing['bfloat16'][1]:.1f}, fp32 {timing['float32'][1]:.1f}")
+    log(f"[dtype] phase 10 in {time.perf_counter() - t0:.1f} s")
+    return counts
+
 SHAPE_KEYS = ("level", "P", "p", "C", "B", "S", "H", "D", "dtype", "exact", "n_split")
 
 
-def kernels_line(results: dict, main_launches: dict, fleet: dict, entry: dict) -> dict:
+def kernels_line(results: dict, main_launches: dict, fleet: dict, entry: dict,
+                 dtype: dict) -> dict:
     """One entry per kernel: the fp32 case at the largest main-path shape,
     with the largest fp32 error over all its cases; ``launches`` from the
     main path's run (phase 4), ``fleet_launches`` from each fleet run,
-    ``entry_launches`` from each entry point's run (phase 9), and for
+    ``entry_launches`` from each entry point's run (phase 9),
+    ``dtype_launches`` from each kernel-route run of phase 10, and for
     GroupNorm+stitch the fleet's new patch sides (``fleet_shapes``)."""
     out = []
     for name, (_, source, replaces) in KERNELS.items():
@@ -1935,7 +2056,8 @@ def kernels_line(results: dict, main_launches: dict, fleet: dict, entry: dict) -
                     "shape": {k: v for k, v in pick.items() if k in SHAPE_KEYS},
                     "fleet_launches": {policy: counts[name]
                                        for policy, counts in fleet["launches"].items()},
-                    "entry_launches": {path: counts[name] for path, counts in entry.items()}})
+                    "entry_launches": {path: counts[name] for path, counts in entry.items()},
+                    "dtype_launches": {run: counts[name] for run, counts in dtype.items()}})
         if name == "groupnorm_stitch":
             out[-1]["fleet_shapes"] = [
                 {k: v for k, v in r.items()
@@ -1956,15 +2078,16 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     results = phase_kernels(dev)
-    phase_step(dev)
+    step_ms = phase_step(dev)
     main_launches, cache_samples = phase_serve(dev)
     fleet = phase_fleet(dev, cache_samples)
     phase_lm(dev, smi)
     phase_train(dev, smi)
     phase_dist(dev, smi)
     entry = phase_entry(dev)
+    dtype = phase_dtype(dev, smi, step_ms[SD3_LITE.name])
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps(kernels_line(results, main_launches, fleet, entry)))
+    log(json.dumps(kernels_line(results, main_launches, fleet, entry, dtype)))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,10 @@ GroupNorm comes in two modes:
   request's patches — patched execution equals unpatched execution;
 - per-patch (paper-faithful ``exact=False``): each patch normalized with its
   own stats, reproducing the paper's approximation.
+
+Every product goes through ``matmul``, which promotes mixed operands as
+``jnp`` does (fp32 with bf16 -> fp32); convolutions, like
+``lax.conv_general_dilated``, refuse mixed dtypes.
 """
 from __future__ import annotations
 
@@ -30,6 +34,15 @@ from repro_torch.core.stitcher import gather_halo
 def patch_request_index(csp: CSP, device: torch.device) -> torch.Tensor:
     """(P,) int64 request index of every patch, on ``device`` (cached)."""
     return csp_device(csp, device).patch_req
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with jnp's type promotion: the narrower operand is cast to
+    the common dtype (fp32 with bf16 -> fp32), where ``torch.matmul``
+    refuses mixed dtypes. Same-dtype operands are not copied, so their
+    product is bit for bit ``a @ b``."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
 
 
 def conv_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
@@ -94,7 +107,7 @@ def patched_conv(csp: CSP, patches: Optional[torch.Tensor], w: torch.Tensor,
     """
     kh, kw = w.shape[0], w.shape[1]
     if kh == 1 and kw == 1:
-        out = patches @ w[0, 0]
+        out = matmul(patches, w[0, 0])
         return out + b if b is not None else out
     halo = kh // 2
     x = haloed if haloed is not None else gather_halo(
@@ -129,14 +142,14 @@ def grouped_self_attention(csp: CSP, patches: torch.Tensor, wq, wk, wv, wo,
     def attn(imgs, _):
         n, H, W, _ = imgs.shape
         t = imgs.reshape(n, H * W, C)
-        q = (t @ wq).reshape(n, H * W, n_heads, hd)
-        k = (t @ wk).reshape(n, H * W, n_heads, hd)
-        v = (t @ wv).reshape(n, H * W, n_heads, hd)
+        q = matmul(t, wq).reshape(n, H * W, n_heads, hd)
+        k = matmul(t, wk).reshape(n, H * W, n_heads, hd)
+        v = matmul(t, wv).reshape(n, H * W, n_heads, hd)
         s = torch.einsum("nqhd,nkhd->nhqk", q.float(), k.float()) * hd ** -0.5
         pr = torch.softmax(s, dim=-1)
         o = torch.einsum("nhqk,nkhd->nqhd", pr, v.float())
         o = o.reshape(n, H * W, C).to(t.dtype)
-        o = o @ wo
+        o = matmul(o, wo)
         return o.reshape(n, H, W, C)
 
     return per_image_apply(csp, patches, attn)

@@ -36,7 +36,7 @@ from repro_torch.core import patched_ops
 from repro_torch.core.csp import CSP
 from repro_torch.core.csp_device import csp_device
 from repro_torch.core.patching import merge, split
-from repro_torch.core.patched_ops import conv_nhwc, patch_request_index
+from repro_torch.core.patched_ops import conv_nhwc, matmul, patch_request_index
 from repro_torch.core.stitcher import gather_halo
 from repro_torch.kernels.ops import fused_groupnorm_stitch, grouped_attention_kernel
 from repro_torch.models.layers import ParamBuilder
@@ -44,6 +44,12 @@ from repro_torch.models.layers import ParamBuilder
 
 @dataclass(frozen=True)
 class DiffusionConfig:
+    """``dtype`` is the params' dtype only. The timestep embedding and the
+    engine's latents are fp32, and every product promotes as jnp does
+    (``patched_ops.matmul``), so ``dtype="bfloat16"`` is bf16 weights with
+    fp32 activations: the DiT's attention runs the fp32 kernel. The UNet at
+    bf16 raises at its first convolution, as the reference's does
+    (convolutions refuse mixed dtypes)."""
     name: str = "unet-lite"
     kind: str = "unet"            # unet | dit
     latent_channels: int = 4
@@ -185,7 +191,7 @@ def _res_block(cfg, csp: CSP, p, x: torch.Tensor, temb_p: torch.Tensor) -> torch
     h = _gn_stitch(cfg, csp, x, p["gn1"])
     h = F.silu(h)
     h = patched_ops.patched_conv(csp, None, p["conv1"]["w"], p["conv1"]["b"], haloed=h)
-    ss = F.silu(temb_p) @ p["temb_w"] + p["temb_b"]             # (P, 2C)
+    ss = matmul(F.silu(temb_p), p["temb_w"]) + p["temb_b"]      # (P, 2C)
     scale, shift = torch.chunk(ss, 2, dim=-1)
     h = h * (1 + scale[:, None, None, :]) + shift[:, None, None, :]
     h = _gn_stitch(cfg, csp, h, p["gn2"])
@@ -203,12 +209,12 @@ def _cross_attn(csp: CSP, p, x: torch.Tensor, text: torch.Tensor,
     P, s, _, C = x.shape
     hd = C // n_heads
     tx = text[patch_request_index(csp, x.device)]               # (P, T, dt)
-    q = (x.reshape(P, s * s, C) @ p["xq"]).reshape(P, s * s, n_heads, hd)
-    k = (tx @ p["xk"]).reshape(P, -1, n_heads, hd)
-    v = (tx @ p["xv"]).reshape(P, -1, n_heads, hd)
+    q = matmul(x.reshape(P, s * s, C), p["xq"]).reshape(P, s * s, n_heads, hd)
+    k = matmul(tx, p["xk"]).reshape(P, -1, n_heads, hd)
+    v = matmul(tx, p["xv"]).reshape(P, -1, n_heads, hd)
     sgn = torch.einsum("pqhd,pkhd->phqk", q.float(), k.float()) * hd ** -0.5
     o = torch.einsum("phqk,pkhd->pqhd", torch.softmax(sgn, -1), v.float())
-    o = o.reshape(P, s * s, C).to(x.dtype) @ p["xo"]
+    o = matmul(o.reshape(P, s * s, C).to(x.dtype), p["xo"])
     return x + o.reshape(P, s, s, C)
 
 
@@ -221,11 +227,11 @@ def _self_attn(cfg, csp: CSP, p, x: torch.Tensor) -> torch.Tensor:
         def attn(imgs, _):
             n, H, Wd, _ = imgs.shape
             t = imgs.reshape(n, H * Wd, C)
-            q = (t @ p["wq"]).reshape(n, H * Wd, cfg.n_heads, hd)
-            k = (t @ p["wk"]).reshape(n, H * Wd, cfg.n_heads, hd)
-            v = (t @ p["wv"]).reshape(n, H * Wd, cfg.n_heads, hd)
+            q = matmul(t, p["wq"]).reshape(n, H * Wd, cfg.n_heads, hd)
+            k = matmul(t, p["wk"]).reshape(n, H * Wd, cfg.n_heads, hd)
+            v = matmul(t, p["wv"]).reshape(n, H * Wd, cfg.n_heads, hd)
             o = grouped_attention_kernel(q, k, v)
-            o = o.reshape(n, H * Wd, C) @ p["wo"]
+            o = matmul(o.reshape(n, H * Wd, C), p["wo"])
             return o.reshape(n, H, Wd, C)
 
         return x + patched_ops.per_image_apply(csp, x, attn)
@@ -242,7 +248,8 @@ def _attn_block(cfg, csp: CSP, p, x: torch.Tensor, text: torch.Tensor) -> torch.
     hn = patched_ops.patched_groupnorm(csp, h, p["gn_ff"]["scale"], p["gn_ff"]["bias"],
                                        cfg.groups, exact=cfg.exact_stats)
     # jax.nn.gelu defaults to the tanh approximation; torch's default is erf
-    ff = F.gelu(hn.reshape(P, s * s, C) @ p["ff1"], approximate="tanh") @ p["ff2"]
+    ff = matmul(F.gelu(matmul(hn.reshape(P, s * s, C), p["ff1"]), approximate="tanh"),
+                p["ff2"])
     return h + ff.reshape(P, s, s, C)
 
 
@@ -317,16 +324,16 @@ def denoise_patched(cfg: DiffusionConfig, params, csp: CSP, patches: torch.Tenso
     """
     seg = patch_request_index(csp, patches.device)
     temb = timestep_embedding(t_req, cfg.t_dim)
-    temb = F.silu(temb @ params["temb_w1"] + params["temb_b1"])
-    temb = temb @ params["temb_w2"] + params["temb_b2"]           # (R, t_dim)
+    temb = F.silu(matmul(temb, params["temb_w1"]) + params["temb_b1"])
+    temb = matmul(temb, params["temb_w2"]) + params["temb_b2"]    # (R, t_dim)
     temb_p = temb[seg]                                            # (P, t_dim)
 
     run = block_hook or (lambda name, kind, fn, x: fn(x))
 
     if cfg.kind == "dit":
         x = run("tok_in", "pixel",
-                lambda xx: xx @ params["tok_in"] + params["tok_in_b"], patches)
-        mod = F.silu(temb) @ params["adaln_w"] + params["adaln_b"]
+                lambda xx: matmul(xx, params["tok_in"]) + params["tok_in_b"], patches)
+        mod = matmul(F.silu(temb), params["adaln_w"]) + params["adaln_b"]
         sc, sh, gate = torch.chunk(mod[seg], 3, dim=-1)
         for i in range(cfg.dit_depth):
             name = f"blk{i}"
@@ -342,7 +349,7 @@ def denoise_patched(cfg: DiffusionConfig, params, csp: CSP, patches: torch.Tenso
             csp, x, params["out_norm"]["scale"], params["out_norm"]["bias"],
             cfg.groups, exact=cfg.exact_stats)
         return run("tok_out", "pixel",
-                   lambda xx: xx @ params["tok_out"] + params["tok_out_b"], x)
+                   lambda xx: matmul(xx, params["tok_out"]) + params["tok_out_b"], x)
 
     # unet
     x = run("stem", "context",

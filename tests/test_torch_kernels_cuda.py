@@ -32,6 +32,8 @@ ATTN_SWEEP = [  # tests/test_kernels.py::test_patch_attention_sweep, plus a main
     (2, 4096, 4, 32, "float32"),
     (2, 1024, 4, 32, "bfloat16"),
     (1, 65, 2, 8, "bfloat16"),        # D=8 padded to the MMA depth, ragged tail
+    (1, 1024, 4, 16, "float32"),      # SD3-lite's own heads: fp32 also at dtype="bfloat16"
+    (1, 4096, 4, 16, "float32"),
 ]
 
 
