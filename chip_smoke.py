@@ -12,7 +12,11 @@ Phases, each of which must pass:
    its peak (GN-stitch: flops on CUDA cores; attention: the tensor-core MMAs
    of its route and the exponentials), each row's ``bound_by`` naming the
    term (the kernels line keeps "bytes" or "operations"); attention at the
-   UNet's D = 32 and at SD3-lite's own D = 16. GN-stitch is the
+   UNet's D = 32, at SD3-lite's own D = 16 and at public models' head dims
+   (D = 40, 72, 80, 128, 160 at B = 1, S = 1024 and 4096, H = 16 for D = 72
+   and 8 for the others, each row naming its kernel instance's width); every
+   D from 1 to 256 in both dtypes at two small shapes, and D = 257 raising
+   on the card. GN-stitch is the
    whole ``fused_groupnorm_stitch`` call (partial sums, then the stitch),
    timed inside a CUDA graph, which also shows it makes no host round trip;
    its two kernels are timed alone as well;
@@ -115,7 +119,19 @@ Phases, each of which must pass:
    attention group), the patch cache off and then on, the kernel route
    against the plain route at 1e-4 and PSNR > 80, the attention kernel's
    launches above 0, every latent finite and fp32; step ms and peak device
-   memory of both dtypes beside phase 3's fp32 SD3-lite step.
+   memory of both dtypes beside phase 3's fp32 SD3-lite step;
+11. heads: two public models' widths on the repo's own block structure,
+   seed-0 weights drawn on the card: a PixArt-α-shaped DiT (28 blocks,
+   width 1152, 16 heads: D = 72; nothing cut) and an SD 1.5-shaped UNet
+   (320 x [1, 2, 4] channels, 2 res blocks a level, attention at every
+   level, 8 heads: D = 40 / 80 / 160; GroupNorm 32; SD 1.5's fourth level,
+   1280 channels without attention, left out): three
+   ``_denoise_step`` calls from step 40 of 50 on latents 32²/48²/64² at
+   patch 16 (and, for the DiT, 48² + 2 × 32²), cache off, kernel route
+   against plain route within 1e-4 of the largest latent and at PSNR > 80,
+   the attention (and for the UNet GN-stitch) launches above 0, the head
+   dims and instance widths that ran, each route's peak device memory, and
+   the engine step of both routes, the median of 5 in turns.
 
 Every comparison phase runs with TF32 off for cuDNN convs and cuBLAS matmuls.
 The last line is ``{"ok": true, "device": {...}}``; without CUDA, or if any
@@ -169,7 +185,8 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.groupnorm_stitch import (  # noqa: E402
     gn_partials, gn_stitch, groupnorm_stitch)
 from repro_torch.kernels.ops import fused_groupnorm_stitch  # noqa: E402
-from repro_torch.kernels.patch_attention import block_q, patch_attention, split_kv  # noqa: E402
+from repro_torch.kernels.patch_attention import (  # noqa: E402
+    MAX_HEAD_DIM, block_q, instance_width, patch_attention, split_kv)
 from repro_torch.kernels.ref import (  # noqa: E402
     ref_attention, ref_gn_finalize, ref_gn_partials, ref_groupnorm_stitch)
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
@@ -182,7 +199,8 @@ from repro_torch.launch.steps import (batch_shardings, build_cell, loss_and_grad
                                       make_decode_step, make_prefill_step, make_train_step)
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models.flash import flash_attention  # noqa: E402
-from repro_torch.models.diffusion import SD3_LITE, SDXL_LITE, init_diffusion  # noqa: E402
+from repro_torch.models.diffusion import (  # noqa: E402
+    SD3_LITE, SDXL_LITE, DiffusionConfig, init_diffusion)
 from repro_torch.models.layers import tree_leaves, tree_map, tree_to  # noqa: E402
 from repro_torch.models.lm import build_model, forward, init_cache, init_model  # noqa: E402
 from repro_torch.models.moe import ep_layout  # noqa: E402
@@ -201,6 +219,7 @@ CHIP_RES = [(64, 64), (96, 96), (128, 128)]    # 512/768/1024-pixel SD requests
 # (level, C) of SDXL-lite's GroupNorm+stitch calls: each level's ResBlocks, and
 # the decoder's, whose input is the skip concatenation
 GN_LEVELS = ((0, 64), (0, 128), (1, 128), (1, 256))
+PUBLIC_HEAD_DIMS = (40, 72, 80, 128, 160)
 KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
     "groupnorm_stitch": (groupnorm_stitch, "src/repro_torch/kernels/csrc/groupnorm_stitch.cu",
                          "src/repro/kernels/groupnorm_stitch.py:128"),
@@ -374,7 +393,7 @@ def gn_rows(dev, gen, level: int, C: int, res: list, patch: int, dtype, modes) -
 
 def phase_kernels(dev) -> dict:
     gen = torch.Generator().manual_seed(0)
-    results = {"groupnorm_stitch": [], "patch_attention": []}
+    results = {"groupnorm_stitch": [], "patch_attention": [], "public_heads": []}
     # GN-stitch on the chip's three-request CSP: level 0 (p=32) and level 1 (p=16)
     for level, C in GN_LEVELS:
         f = 2 ** level
@@ -388,30 +407,69 @@ def phase_kernels(dev) -> dict:
     # q, k, v are strided views of one (B, S, 3, H, D) projection. B=1 is what
     # the main path runs (one request per resolution group), each of its three
     # S taking the split-KV path.
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for B, S, D in ((1, 1024, 32), (1, 2304, 32), (1, 4096, 32), (2, 1024, 32),
                     (2, 2304, 32), (2, 4096, 32), (1, 1024, 16), (1, 2304, 16),
                     (1, 4096, 16), (2, 1024, 16), (2, 4096, 16)):
-        H = 4
         for dtype in (torch.float32, torch.bfloat16):
-            qkv = torch.randn(B, S, 3, H, D, generator=gen).to(dev, dtype)
-            q, k, v = qkv.unbind(dim=2)
-            got = patch_attention(q, k, v)
-            want = ref_attention(q, k, v)
-            torch.cuda.synchronize()
-            err = max_err(got, want, TOL[dtype]["attn"], f"patch_attention S={S} D={D} {dtype}")
-            ms = cuda_ms(lambda: patch_attention(q, k, v))
-            plain = cuda_ms(lambda: ref_attention(q, k, v), calls=2)
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)))
-            bms, term = attention_bound(B, S, H, D, dtype)
-            row = dict(B=B, S=S, H=H, D=D, dtype=str(dtype).split(".")[1],
-                       n_split=split_kv(B, S, H, n_sm, block_q(dtype, D)),
-                       max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                       bound_by=term, library_ms=lib_ms)
-            results["patch_attention"].append(row)
-            log(f"[attention] {json.dumps(row)}")
+            results["patch_attention"].append(attention_row(dev, gen, B, S, 4, D, dtype))
+    # public models' head dims (phase 11's shapes): SD 1.5's UNet D = 40 / 80 /
+    # 160 (H = 8), PixArt-α's and DiT-XL's D = 72 (H = 16), Flux's D = 128
+    for D, S in itertools.product(PUBLIC_HEAD_DIMS, (1024, 4096)):
+        for dtype in (torch.float32, torch.bfloat16):
+            results["public_heads"].append(
+                attention_row(dev, gen, 1, S, 16 if D == 72 else 8, D, dtype))
+    attention_dims_sweep(dev, gen)
     return results
+
+
+def attention_row(dev, gen, B: int, S: int, H: int, D: int, dtype) -> dict:
+    """The attention kernel at one shape against ``ref_attention``, timed
+    beside the plain version, SDPA and its bound."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    qkv = torch.randn(B, S, 3, H, D, generator=gen).to(dev, dtype)
+    q, k, v = qkv.unbind(dim=2)
+    got = patch_attention(q, k, v)
+    want = ref_attention(q, k, v)
+    torch.cuda.synchronize()
+    err = max_err(got, want, TOL[dtype]["attn"], f"patch_attention S={S} D={D} {dtype}")
+    ms = cuda_ms(lambda: patch_attention(q, k, v))
+    plain = cuda_ms(lambda: ref_attention(q, k, v), calls=2)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)))
+    bms, term = attention_bound(B, S, H, D, dtype)
+    row = dict(B=B, S=S, H=H, D=D, width=instance_width(D), dtype=str(dtype).split(".")[1],
+               n_split=split_kv(B, S, H, n_sm, block_q(dtype, D)),
+               max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+               bound_by=term, library_ms=lib_ms)
+    log(f"[attention] {json.dumps(row)}")
+    return row
+
+
+def attention_dims_sweep(dev, gen) -> None:
+    """Every head dim from 1 to 256 in both dtypes against ``ref_attention``
+    at two small shapes (one split-KV), the worst error per instance width;
+    and a head dim past the widest instance raising on the card."""
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = {}
+        for D, (B, S, H) in itertools.product(range(1, MAX_HEAD_DIM + 1),
+                                              ((1, 100, 2), (2, 65, 1))):
+            q, k, v = torch.randn(B, S, 3, H, D, generator=gen).to(dev, dtype).unbind(dim=2)
+            got = patch_attention(q, k, v)
+            err = max_err(got, ref_attention(q, k, v), TOL[dtype]["attn"],
+                          f"patch_attention B={B} S={S} H={H} D={D} {dtype}")
+            worst[instance_width(D)] = max(worst.get(instance_width(D), 0.0), err)
+        log(f"[attention dims] D = 1..{MAX_HEAD_DIM} {str(dtype).split('.')[1]} (tol "
+            f"{TOL[dtype]['attn']:g}): max abs err by instance width "
+            f"{ {w: float(f'{e:.3e}') for w, e in worst.items()} }")
+    x = torch.zeros(1, 16, 2, MAX_HEAD_DIM + 1, device=dev)
+    try:
+        patch_attention(x, x, x)
+    except ValueError as e:
+        log(f"[attention dims] D = {MAX_HEAD_DIM + 1} raises on the card: {e}")
+    else:
+        raise RuntimeError(f"patch_attention took head dim {MAX_HEAD_DIM + 1}")
+    log(f"[attention dims] {time.perf_counter() - t0:.1f} s")
 
 
 def reset_launches() -> None:
@@ -1941,10 +1999,9 @@ DTYPE_LADDER = [(32, 32), (48, 48), (64, 64)]
 DTYPE_SIDES = (DTYPE_LADDER, [(48, 48), (32, 32), (32, 32)])
 
 
-def dtype_steps(dev, cfg, params, sides, use_cache: bool, n_steps: int = 3) -> tuple:
-    """``n_steps`` engine steps of ``cfg`` on one request per side, from step
-    40 of 50, the launch counts set to 0 just before and read just after:
-    (latents, step ms, launches, cache savings per step)."""
+def engine_requests(dev, cfg, params, sides, use_cache: bool) -> tuple:
+    """(engine, requests): an engine of ``cfg`` on the ladder's sides and one
+    prepared request per side, at step 40 of 50."""
     ecfg = EngineConfig(clock="real", use_cache=use_cache, cache_capacity=512, seed=3)
     eng = PatchedServeEngine(cfg, params, ecfg, dict.fromkeys(DTYPE_LADDER, 1.0), DTYPE_LADDER,
                              device=dev)
@@ -1952,6 +2009,14 @@ def dtype_steps(dev, cfg, params, sides, use_cache: bool, n_steps: int = 3) -> t
                     prompt=f"prompt-{i}") for i, r in enumerate(sides)]
     for r in reqs:
         eng._prepare(r)
+    return eng, reqs
+
+
+def dtype_steps(dev, cfg, params, sides, use_cache: bool, n_steps: int = 3) -> tuple:
+    """``n_steps`` engine steps of ``cfg`` on one request per side, from step
+    40 of 50, the launch counts set to 0 just before and read just after:
+    (latents, step ms, launches, cache savings per step)."""
+    eng, reqs = engine_requests(dev, cfg, params, sides, use_cache)
     reset_launches()
     ms, savings = [], []
     for _ in range(n_steps):
@@ -2032,17 +2097,149 @@ def phase_dtype(dev, smi: str, sd3_step_ms: float) -> dict:
     log(f"[dtype] phase 10 in {time.perf_counter() - t0:.1f} s")
     return counts
 
+
+# ---------------------------------------------------------------------------
+# phase 11
+# ---------------------------------------------------------------------------
+
+# two public text-to-image models' widths on the repo's own block structure:
+# PixArt-α (arXiv:2310.00426; 28 blocks, hidden 1152, 16 heads: D = 72; T5
+# text 120 x 4096) and Stable Diffusion 1.5 (CompVis v1-inference.yaml: 320
+# channels x [1, 2, 4, 4] with attention at the first three levels, 2 res
+# blocks a level, 8 heads: D = 40 / 80 / 160; GroupNorm 32; CLIP text 77 x
+# 768), whose three attention levels are built and fourth is not
+PIXART_ALPHA = DiffusionConfig(name="pixart-alpha-shaped", kind="dit", width=1152,
+                               dit_depth=28, n_heads=16, d_text=4096, n_text=120, t_dim=256)
+SD15 = DiffusionConfig(name="sd1.5-shaped", kind="unet", width=320, levels=3,
+                       blocks_per_level=2, attn_levels=(0, 1, 2), n_heads=8, groups=32,
+                       d_text=768, n_text=77, t_dim=320)
+HEADS_SIDES = {PIXART_ALPHA.name: DTYPE_SIDES, SD15.name: (DTYPE_LADDER,)}
+# what each shape leaves out of its model (widths and heads are never cut)
+HEADS_CUT = {PIXART_ALPHA.name: "nothing cut",
+             SD15.name: "SD 1.5's fourth level (1280 channels, no attention) left out"}
+# kernel route against plain route, relative to the largest |latent| of the
+# plain route; and the repo's PSNR bar (tests/test_system.py)
+HEADS_TOL, HEADS_PSNR = 1e-4, 80.0
+
+
+@contextlib.contextmanager
+def attention_shapes():
+    """Yields the set of (B, S, H, D, instance width) of every attention call
+    made through the kernels' entry point while inside."""
+    from repro_torch.kernels import ops
+    seen, attention = set(), ops.patch_attention
+
+    def rec(q, k, v):
+        B, S, H, D = q.shape
+        seen.add((B, S, H, D, instance_width(D)))
+        return attention(q, k, v)
+
+    ops.patch_attention = rec
+    try:
+        yield seen
+    finally:
+        ops.patch_attention = attention
+
+
+def heads_timing(dev, cfg, params, n: int = 5) -> tuple:
+    """(kernel route, plain route) engine step ms on the 29-patch ladder,
+    cache off: each the median of ``n`` steps after one warm step, the two
+    routes stepping in turns (kernel, plain, plain, kernel, ...)."""
+    runs = {use: engine_requests(dev, dataclasses.replace(cfg, use_kernels=use), params,
+                                 DTYPE_LADDER, False) for use in (True, False)}
+    ms = {True: [], False: []}
+    for i in range(n + 1):
+        for use in ((True, False) if i % 2 == 0 else (False, True)):
+            eng, reqs = runs[use]
+            _, t = timed_step(lambda: eng._denoise_step(reqs))
+            if i:
+                ms[use].append(t)
+    return float(np.median(ms[True])), float(np.median(ms[False]))
+
+
+def heads_compare(dev, cfg, params, sides) -> dict:
+    """Three engine steps through the kernels against the plain route on one
+    request per side: the checks, the launches, the attention shapes and
+    instance widths that ran, and each route's peak device memory."""
+    tag = f"{cfg.name} sides={[h for h, _ in sides]}"
+    runs, peak, shapes = {}, {}, {}
+    for use in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with attention_shapes() as seen:
+            runs[use] = dtype_steps(dev, dataclasses.replace(cfg, use_kernels=use), params,
+                                    sides, False)
+        peak[use] = (torch.cuda.max_memory_allocated(dev) - before) / 2 ** 20
+        shapes[use] = sorted(seen)
+    (got, ms, n, _), (want, plain_ms, plain_n, _) = runs[True], runs[False]
+    for i, (a, b) in enumerate(zip(got, want)):
+        if {a.dtype, b.dtype} != {torch.float32} or not (
+                torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise RuntimeError(f"{tag} request {i}: latents {a.dtype}/{b.dtype}, not finite fp32")
+    scale = max(float(b.abs().max()) for b in want)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    db = min(psnr(a, b) for a, b in zip(got, want))
+    if not err <= HEADS_TOL * scale or db <= HEADS_PSNR:
+        raise RuntimeError(f"{tag}: kernels against plain max abs {err:.3e} (bar "
+                           f"{HEADS_TOL:g} x {scale:.3e}), PSNR {db:.2f} dB (bar {HEADS_PSNR})")
+    need = ("patch_attention",) + (("groupnorm_stitch",) if cfg.kind == "unet" else ())
+    if any(n[k] <= 0 for k in need) or sum(plain_n.values()) != 0 or shapes[False]:
+        raise RuntimeError(f"{tag}: launches kernel route {n}, plain route {plain_n}, "
+                           f"plain-route attention calls {shapes[False]}")
+    widths = sorted({(D, w) for *_, D, w in shapes[True]})
+    log(f"[heads] {tag}: max |kernels - plain| {err:.3e} = {err / scale:.3e} of max |latent| "
+        f"{scale:.3e} (bar {HEADS_TOL:g}) PSNR {db:.2f} dB; launches {n}, plain {plain_n}; "
+        f"(head dim, instance width) {widths}; attention (B, S, H) "
+        f"{sorted({(B, S, H) for B, S, H, *_ in shapes[True]})}; step ms kernels "
+        f"{[round(x, 3) for x in ms]} plain {[round(x, 3) for x in plain_ms]}; peak device "
+        f"memory MiB kernels {peak[True]:.1f} plain {peak[False]:.1f}")
+    return dict(launches=n, max_abs_err=err, rel_err=err / scale, psnr=db,
+                widths=[w for _, w in widths], peak_mib=peak[True],
+                plain_peak_mib=peak[False])
+
+
+def phase_heads(dev, smi: str) -> dict:
+    """Phase 11: PixArt-α- and SD 1.5-shaped models at full width (depth as
+    ``HEADS_CUT`` says), seed-0 weights drawn on the card, through the
+    engine, kernel route against plain route. Returns the kernel route's
+    launches per run."""
+    t0 = time.perf_counter()
+    counts = {}
+    for cfg in (PIXART_ALPHA, SD15):
+        t_cfg = time.perf_counter()
+        params = init_diffusion(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        for sides in HEADS_SIDES[cfg.name]:
+            out = heads_compare(dev, cfg, params, sides)
+            counts[f"{cfg.name}_{sum(h * w for h, w in sides) // 16 ** 2}p"] = out["launches"]
+        kernel_ms, plain_ms = heads_timing(dev, cfg, params)
+        depth = (f"{cfg.dit_depth} blocks" if cfg.kind == "dit" else
+                 f"{cfg.levels} levels x {cfg.blocks_per_level} res blocks")
+        log(f"[heads] {smi}: {cfg.name} (width {cfg.width}, {depth}, {cfg.n_heads} heads, "
+            f"{HEADS_CUT[cfg.name]}; {n_params / 1e6:.1f} M params, fp32) engine step on "
+            f"32²/48²/64², cache off, median of 5 in turns: kernels {kernel_ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms; {time.perf_counter() - t_cfg:.1f} s")
+        del params
+        torch.cuda.empty_cache()
+    log(f"[heads] phase 11 in {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 SHAPE_KEYS = ("level", "P", "p", "C", "B", "S", "H", "D", "dtype", "exact", "n_split")
 
 
 def kernels_line(results: dict, main_launches: dict, fleet: dict, entry: dict,
-                 dtype: dict) -> dict:
+                 dtype: dict, heads: dict) -> dict:
     """One entry per kernel: the fp32 case at the largest main-path shape,
     with the largest fp32 error over all its cases; ``launches`` from the
     main path's run (phase 4), ``fleet_launches`` from each fleet run,
     ``entry_launches`` from each entry point's run (phase 9),
-    ``dtype_launches`` from each kernel-route run of phase 10, and for
-    GroupNorm+stitch the fleet's new patch sides (``fleet_shapes``)."""
+    ``dtype_launches`` from each kernel-route run of phase 10,
+    ``heads_launches`` from each kernel-route run of phase 11, for
+    GroupNorm+stitch the fleet's new patch sides (``fleet_shapes``) and for
+    attention phase 2's rows at public head dims (``public_heads``)."""
     out = []
     for name, (_, source, replaces) in KERNELS.items():
         rows = [r for r in results[name] if r["dtype"] == "float32"]
@@ -2057,12 +2254,19 @@ def kernels_line(results: dict, main_launches: dict, fleet: dict, entry: dict,
                     "fleet_launches": {policy: counts[name]
                                        for policy, counts in fleet["launches"].items()},
                     "entry_launches": {path: counts[name] for path, counts in entry.items()},
-                    "dtype_launches": {run: counts[name] for run, counts in dtype.items()}})
+                    "dtype_launches": {run: counts[name] for run, counts in dtype.items()},
+                    "heads_launches": {run: counts[name] for run, counts in heads.items()}})
         if name == "groupnorm_stitch":
             out[-1]["fleet_shapes"] = [
                 {k: v for k, v in r.items()
                  if k in SHAPE_KEYS + ("max_abs_err", "ms", "bound_ms", "bound_by")}
                 for r in fleet["groupnorm_stitch"]]
+        else:
+            out[-1]["public_heads"] = [
+                {k: v for k, v in r.items()
+                 if k in SHAPE_KEYS + ("width", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}
+                for r in results["public_heads"]]
     return {"kernels": out}
 
 
@@ -2086,8 +2290,9 @@ def main() -> int:
     phase_dist(dev, smi)
     entry = phase_entry(dev)
     dtype = phase_dtype(dev, smi, step_ms[SD3_LITE.name])
+    heads = phase_heads(dev, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps(kernels_line(results, main_launches, fleet, entry, dtype)))
+    log(json.dumps(kernels_line(results, main_launches, fleet, entry, dtype, heads)))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,30 +7,52 @@
 //
 // What it computes. q, k, v (B, S, H, D) with any batch/sequence/head strides
 // and unit stride over D; o (B, S, H, D) contiguous;
-// o = softmax(q k^T * D^-0.5) v per (batch, head), every key visible.
-// D is 8, 16, 32 or 64; fp32 and bf16.
+// o = softmax(q k^T * scale) v per (batch, head), every key visible, scale
+// D^-0.5 of the caller's head dim. Any D from 1 to 256 whose rows are whole
+// 16-byte chunks (D * sizeof(T) % 16 == 0: the wrapper zero-pads the others
+// to the next such width in a copy); fp32 and bf16.
 //
 // What bounds it on the H100. 4*S*S*D flops and S*S exponentials per
 // (batch, head) against 4*S*D elements of traffic: at S >= 1024 it is bound
-// by operations, and by which operations depends on the type:
+// by operations, and by which operations depends on the type and D:
 // - fp32 by the tensor cores: three bf16 passes per product at 989 TFLOP/s,
 //   330 TFLOP/s of fp32 work (B=2, H=4, S=4096, D=32: 0.052 ms, against
 //   0.034 ms of exponentials);
 // - bf16 at D <= 32 by the exponentials, not the MMAs: S*S exp2 at about
 //   3.9e12/s on the special-function units (0.034 ms at the same shape,
-//   against 0.017 ms of bf16 MMA).
+//   against 0.017 ms of bf16 MMA); from D = 64 up by the MMAs.
 //
 // What the design does about that.
 // - Tensor cores, mma.sync.m16n8k16 bf16 with fp32 accumulators for both
 //   types and both products. A block of 4 warps owns 4 * 16 * kM query rows;
-//   each warp keeps its Q fragments in registers for the whole key loop and
-//   owns kM = 2 m16 row tiles (1 for fp32 at D = 64, for registers), so
-//   every K/V fragment it loads, and in fp32 splits, feeds kM MMAs. Not
-//   wgmma: at D <= 64 a key tile is only 1-4 MMA k-steps deep; the fp32
-//   split needs both halves of every operand, which wgmma would read from
-//   shared memory in its swizzled layout (twice the K/V footprint and a split
-//   pass per tile), while mma.sync splits fragments in registers as they are
-//   loaded; and bf16 is bound by the exponentials at D <= 32, not the MMA rate.
+//   each warp owns kM m16 row tiles, so every K/V fragment it loads, and in
+//   fp32 splits, feeds kM MMAs. Not wgmma: the fp32 split needs both halves
+//   of every operand, which wgmma would read from shared memory in its
+//   swizzled layout (twice the K/V footprint and a split pass per tile),
+//   while mma.sync splits fragments in registers as they are loaded; and bf16
+//   is bound by the exponentials at D <= 32, not the MMA rate.
+// - One instance per padded width DP in kWidths: the smallest DP >= D runs.
+//   Shared-memory rows hold DP columns; columns D..DP-1 of K, V (and Q where
+//   it is staged) are zero-filled once, and the copies never write them, so
+//   they add nothing to q k^T. Q's fragment columns past D are zero; the
+//   accumulator's columns past D are never stored. A width class sets where
+//   Q lives, the row tiles per warp, the keys per shared-memory tile and the
+//   ring depth, within 255 registers a thread and 227 KB of shared memory a
+//   block (smem_bytes below):
+//     width        fp32: kM  Q     keys  stages    bf16: kM  Q     keys  stages
+//     16, 32             2   regs  64    2               2   regs  64    2
+//     48, 64             1   regs  64    2               2   regs  64    2
+//     80, 96             1   regs  64    2               1   regs  64    2
+//     128                1   regs  32    2               1   regs  64    2
+//     160 .. 256         1   smem  32    1               1   smem  64    2
+//   Q in registers costs kM * DP/2 of them in fp32 (hi and lo) and the
+//   accumulator kM * DP/2 more; past DP = 128 that leaves too few for the
+//   scores, so Q is staged in shared memory once and each warp reads one
+//   k-step's A fragments at a time. fp32 rows are twice bf16's: with 64-key
+//   tiles fp32 from DP = 128 fits one block of 4 warps a SM, so it takes
+//   32-key tiles (two blocks a SM up to DP = 192), and past DP = 128 one
+//   stage, copying each tile in turn. The split-KV cut stays in tiles of
+//   kBlockK = 64 keys, each walked as kBlockK / kTileK shared-memory tiles.
 // - fp32 as 3xbf16. Each operand pair is written x = hi + lo with
 //   hi = bf16(x) and lo = bf16(x - hi); a product accumulates
 //   lo*hi + hi*lo + hi*hi (the small terms first), about 16 bits of each
@@ -41,14 +63,12 @@
 //   attention does.
 // - The P*V A operand comes straight from the score accumulators: two n8
 //   score tiles are one k16 A fragment, so no shuffle moves P between threads.
-// - K/V staging by cp.async, 16-byte copies, in a ring of kStages = 2 tiles
-//   of 64 keys in shared memory: tile j+1 is in flight while tile j is in the
-//   MMAs. Rows are padded (fp32 +4 floats, bf16 +8 values) so that fragment
-//   loads and ldmatrix.trans (V in bf16) hit 32 distinct banks. Copies past
-//   S zero-fill their row. D = 8 is padded to the MMA depth of 16 with zeros:
-//   in bf16 as zero columns of K in shared memory, written once; in fp32 in
-//   the fragments. Never in device memory. The wrapper checks that every base
-//   pointer and stride is 16-byte aligned.
+// - K/V staging by cp.async, 16-byte copies, in a ring of kStages tiles of
+//   kTileK keys in shared memory: with two stages tile j+1 is in flight
+//   while tile j is in the MMAs. Rows are padded (fp32 +4 floats, bf16 +8 values)
+//   so that fragment loads and ldmatrix.trans (V in bf16) spread over the
+//   banks. Copies past S zero-fill their row. The wrapper checks that every
+//   base pointer and stride is 16-byte aligned.
 // - Online softmax on the accumulator fragments: each thread holds two rows
 //   of each m16 tile (g and g+8); the row max reduces over the thread quad by
 //   two shuffles, the row sum stays per thread until the end. 2^x runs on the
@@ -76,14 +96,22 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kBlockK = 64;           // keys per shared-memory tile
-constexpr int kStages = 2;            // tiles in the cp.async ring
+constexpr int kBlockK = 64;           // keys per tile of the split-KV cut
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
+// the padded head dims with an instance, ascending; D runs in the first >= D
+constexpr int kWidths[] = {16, 32, 48, 64, 80, 96, 128, 160, 192, 256};
 
 struct Strides {
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
 };
+
+// the instance width of head dim D, 0 when none takes it
+constexpr int instance_width(int D) {
+  for (int w : kWidths)
+    if (D >= 1 && D <= w) return w;
+  return 0;
+}
 
 // ---------------------------------------------------------------------------
 // PTX
@@ -150,70 +178,68 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+__device__ __forceinline__ void set_zero(float* p) { *p = 0.f; }
+__device__ __forceinline__ void set_zero(bf16* p) { *p = __float2bfloat16(0.f); }
+
 // ---------------------------------------------------------------------------
-// The two routes, fp32 (3xbf16) and bf16. Fragment coordinates of
-// mma.m16n8k16: lane = 4*g + t; an accumulator c[4] of an n8 tile holds
-// (row g, cols 2t, 2t+1) and (row g+8, same cols).
+// The two routes, fp32 (3xbf16) and bf16, at padded width DP. Fragment
+// coordinates of mma.m16n8k16: lane = 4*g + t; an A fragment of k-step kk
+// holds pairs of columns (row g, 2t), (g+8, 2t), (g, 2t+8), (g+8, 2t+8) of
+// the step's 16; an accumulator c[4] of an n8 tile holds (row g, cols 2t,
+// 2t+1) and (row g+8, same cols).
 // ---------------------------------------------------------------------------
 
-template <typename T, int D> struct Route;
+template <typename T, int DP> struct Route;
 
-template <int D> struct Route<float, D> {  // 3xbf16, mma.m16n8k16
-  static constexpr int kM = D <= 32 ? 2 : 1;  // D = 64: within 255 registers
-  static constexpr int kDp = D;               // K columns in shared memory; the
-                                              // fragments pad D = 8 to 16
-  static constexpr int kLd = D + 4;           // shared row, floats
-  static constexpr int kSteps = (D + 15) / 16;
-  struct QFrag { uint32_t hi[kM][kSteps][4], lo[kM][kSteps][4]; };
+template <int DP> struct Route<float, DP> {  // 3xbf16, mma.m16n8k16
+  static constexpr int kM = DP <= 32 ? 2 : 1;
+  static constexpr bool kQSmem = DP > 128;
+  static constexpr int kTileK = DP >= 128 ? 32 : kBlockK;  // keys per shared-memory tile
+  static constexpr int kStages = DP > 128 ? 1 : 2;
+  static constexpr int kLd = DP + 4;          // shared row, floats
+  static constexpr int kSteps = DP / 16;
+  struct AFrag { uint32_t hi[kM][4], lo[kM][4]; };
+  struct BFrag { uint32_t hi[2], lo[2]; };
 
-  // A fragment of k-step kk, pairs of columns: (row g, 2t), (g+8, 2t),
-  // (g, 2t+8), (g+8, 2t+8); columns at or past D are zero
-  __device__ static void load_q(QFrag& f, const float* qb, long long q_ss, int r0, int S,
-                                int t) {
+  // the A fragments of k-step kk for the kM tiles from rows row0 + 16 mi
+  // (+8) of base; rows at or past `rows` and columns at or past D are zero
+  __device__ static void load_a(AFrag& f, const float* base, long long ld, int row0, int rows,
+                                int kk, int t, int D) {
 #pragma unroll
     for (int mi = 0; mi < kM; ++mi)
 #pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = r0 + mi * 16 + (i & 1) * 8;
-          const int d = kk * 16 + 2 * t + (i >> 1) * 8;
-          float x0 = 0.f, x1 = 0.f;
-          if (row < S && d < D) {
-            x0 = qb[row * q_ss + d];
-            x1 = qb[row * q_ss + d + 1];
-          }
-          split_bf16x2(x0, x1, f.hi[mi][kk][i], f.lo[mi][kk][i]);
+      for (int i = 0; i < 4; ++i) {
+        const int row = row0 + mi * 16 + (i & 1) * 8;
+        const int d = kk * 16 + 2 * t + (i >> 1) * 8;
+        float x0 = 0.f, x1 = 0.f;
+        if (row < rows && d < D) {
+          x0 = base[row * ld + d];
+          x1 = base[row * ld + d + 1];
         }
+        split_bf16x2(x0, x1, f.hi[mi][i], f.lo[mi][i]);
+      }
   }
 
-  // s[mi][j] = q k^T over keys 8j..8j+7 of the tile; B = (d 2t, 2t+1; key g)
-  // and (d 2t+8, 2t+9; key g)
-  __device__ static void scores(float (&s)[kM][kBlockK / 8][4], const QFrag& f,
-                                const float* ks, int g, int t) {
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j)
-#pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk) {
-        const float* kr = ks + (j * 8 + g) * kLd + kk * 16 + 2 * t;
-        uint32_t bh[2] = {0u, 0u}, bl[2] = {0u, 0u};
-        split_bf16x2(kr[0], kr[1], bh[0], bl[0]);
-        if (kk * 16 + 8 < D) split_bf16x2(kr[8], kr[9], bh[1], bl[1]);
-#pragma unroll
-        for (int mi = 0; mi < kM; ++mi) {
-          mma_bf16(s[mi][j], f.lo[mi][kk], bh);
-          mma_bf16(s[mi][j], f.hi[mi][kk], bl);
-          mma_bf16(s[mi][j], f.hi[mi][kk], bh);
-        }
-      }
+  // K's B fragment for keys 8j..8j+7 of the tile at k-step kk: (d 2t, 2t+1;
+  // key g) and (d 2t+8, 2t+9; key g)
+  __device__ static void load_b(BFrag& b, const float* ks, int j, int kk, int g, int t) {
+    const float* kr = ks + (j * 8 + g) * kLd + kk * 16 + 2 * t;
+    split_bf16x2(kr[0], kr[1], b.hi[0], b.lo[0]);
+    split_bf16x2(kr[8], kr[9], b.hi[1], b.lo[1]);
+  }
+
+  __device__ static void mma(float (&c)[4], const AFrag& a, int mi, const BFrag& b) {
+    mma_bf16(c, a.lo[mi], b.hi);
+    mma_bf16(c, a.hi[mi], b.lo);
+    mma_bf16(c, a.hi[mi], b.hi);
   }
 
   // acc += p v; score tiles 2jj and 2jj+1 are the A fragment of keys
   // 16jj..16jj+15, B = (keys 2t, 2t+1; d g) and (keys 2t+8, 2t+9; d g)
-  __device__ static void pv(float (&acc)[kM][D / 8][4], const float (&p)[kM][kBlockK / 8][4],
+  __device__ static void pv(float (&acc)[kM][DP / 8][4], const float (&p)[kM][kTileK / 8][4],
                             const float* vs, int g, int t, int) {
 #pragma unroll
-    for (int jj = 0; jj < kBlockK / 16; ++jj) {
+    for (int jj = 0; jj < kTileK / 16; ++jj) {
       uint32_t ah[kM][4], al[kM][4];
 #pragma unroll
       for (int mi = 0; mi < kM; ++mi)
@@ -223,7 +249,7 @@ template <int D> struct Route<float, D> {  // 3xbf16, mma.m16n8k16
                        ah[mi][i], al[mi][i]);
       const float* vr = vs + (jj * 16 + 2 * t) * kLd + g;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
+      for (int n = 0; n < DP / 8; ++n) {
         uint32_t bh[2], bl[2];
         split_bf16x2(vr[n * 8], vr[kLd + n * 8], bh[0], bl[0]);
         split_bf16x2(vr[8 * kLd + n * 8], vr[9 * kLd + n * 8], bh[1], bl[1]);
@@ -238,49 +264,45 @@ template <int D> struct Route<float, D> {  // 3xbf16, mma.m16n8k16
   }
 };
 
-template <int D> struct Route<bf16, D> {  // bf16, mma.m16n8k16
-  static constexpr int kM = 2;
-  static constexpr int kDp = D < 16 ? 16 : D;  // MMA depth 16: D = 8 is zero-padded
-  static constexpr int kLd = kDp + 8;          // shared row, bf16 values
-  struct QFrag { uint32_t a[kM][kDp / 16][4]; };
+template <int DP> struct Route<bf16, DP> {  // bf16, mma.m16n8k16
+  static constexpr int kM = DP <= 64 ? 2 : 1;
+  static constexpr bool kQSmem = DP > 128;
+  static constexpr int kTileK = kBlockK;
+  static constexpr int kStages = 2;
+  static constexpr int kLd = DP + 8;          // shared row, bf16 values
+  static constexpr int kSteps = DP / 16;
+  struct AFrag { uint32_t a[kM][4]; };
+  struct BFrag { uint32_t b[2]; };
 
-  // A fragment of k-step kk, pairs of columns: (row g, 2t), (g+8, 2t),
-  // (g, 2t+8), (g+8, 2t+8); columns at or past D are the zero padding
-  __device__ static void load_q(QFrag& f, const bf16* qb, long long q_ss, int r0, int S,
-                                int t) {
+  __device__ static void load_a(AFrag& f, const bf16* base, long long ld, int row0, int rows,
+                                int kk, int t, int D) {
 #pragma unroll
     for (int mi = 0; mi < kM; ++mi)
 #pragma unroll
-      for (int kk = 0; kk < kDp / 16; ++kk)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = r0 + mi * 16 + (i & 1) * 8;
-          const int d = kk * 16 + 2 * t + (i >> 1) * 8;
-          f.a[mi][kk][i] = (row < S && d < D)
-                               ? *reinterpret_cast<const uint32_t*>(qb + row * q_ss + d) : 0u;
-        }
+      for (int i = 0; i < 4; ++i) {
+        const int row = row0 + mi * 16 + (i & 1) * 8;
+        const int d = kk * 16 + 2 * t + (i >> 1) * 8;
+        f.a[mi][i] = (row < rows && d < D)
+                         ? *reinterpret_cast<const uint32_t*>(base + row * ld + d) : 0u;
+      }
   }
 
-  __device__ static void scores(float (&s)[kM][kBlockK / 8][4], const QFrag& f,
-                                const bf16* ks, int g, int t) {
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j)
-#pragma unroll
-      for (int kk = 0; kk < kDp / 16; ++kk) {
-        const bf16* kr = ks + (j * 8 + g) * kLd + kk * 16 + 2 * t;
-        const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(kr),
-                               *reinterpret_cast<const uint32_t*>(kr + 8)};
-#pragma unroll
-        for (int mi = 0; mi < kM; ++mi) mma_bf16(s[mi][j], f.a[mi][kk], b);
-      }
+  __device__ static void load_b(BFrag& b, const bf16* ks, int j, int kk, int g, int t) {
+    const bf16* kr = ks + (j * 8 + g) * kLd + kk * 16 + 2 * t;
+    b.b[0] = *reinterpret_cast<const uint32_t*>(kr);
+    b.b[1] = *reinterpret_cast<const uint32_t*>(kr + 8);
+  }
+
+  __device__ static void mma(float (&c)[4], const AFrag& a, int mi, const BFrag& b) {
+    mma_bf16(c, a.a[mi], b.b);
   }
 
   // acc += bf16(p) v; score tiles 2jj and 2jj+1 are the A fragment of keys
   // 16jj..16jj+15, and ldmatrix.trans reads V's matching B fragment
-  __device__ static void pv(float (&acc)[kM][D / 8][4], const float (&p)[kM][kBlockK / 8][4],
+  __device__ static void pv(float (&acc)[kM][DP / 8][4], const float (&p)[kM][kTileK / 8][4],
                             const bf16* vs, int, int, int lane) {
 #pragma unroll
-    for (int jj = 0; jj < kBlockK / 16; ++jj) {
+    for (int jj = 0; jj < kTileK / 16; ++jj) {
       uint32_t a[kM][4];
 #pragma unroll
       for (int mi = 0; mi < kM; ++mi) {
@@ -291,7 +313,7 @@ template <int D> struct Route<bf16, D> {  // bf16, mma.m16n8k16
       }
       const bf16* vr = vs + (jj * 16 + (lane & 15)) * kLd;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
+      for (int n = 0; n < DP / 8; ++n) {
         uint32_t b[2];
         ldsm_x2_trans(b, vr + n * 8);
 #pragma unroll
@@ -301,14 +323,17 @@ template <int D> struct Route<bf16, D> {  // bf16, mma.m16n8k16
   }
 };
 
-template <typename T, int D>
+template <typename T, int DP>
 __host__ __device__ constexpr int block_q() {
-  return 16 * Route<T, D>::kM * kWarps;
+  return 16 * Route<T, DP>::kM * kWarps;
 }
 
-template <typename T, int D>
+// the K and V rings, then Q's rows where it is staged, each row kLd values
+template <typename T, int DP>
 constexpr int smem_bytes() {
-  return 2 * kStages * kBlockK * Route<T, D>::kLd * static_cast<int>(sizeof(T));
+  using R = Route<T, DP>;
+  return (2 * R::kStages * R::kTileK + (R::kQSmem ? block_q<T, DP>() : 0)) * R::kLd *
+         static_cast<int>(sizeof(T));
 }
 
 // ---------------------------------------------------------------------------
@@ -319,51 +344,63 @@ constexpr int smem_bytes() {
 // writes split blockIdx.x / query tiles's unnormalised fp32 partial
 // part_o[split][row][D] and part_ml[split][row] = (m * scale*log2e, l), row
 // indexing o's (B, S, H) rows.
-template <typename T, int D>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
 patch_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
                        float* __restrict__ part_o, float* __restrict__ part_ml, int S, int H,
-                       int n_split, Strides st, float scale_log2) {
-  using R = Route<T, D>;
+                       int D, int n_split, Strides st, float scale_log2) {
+  using R = Route<T, DP>;
   constexpr int kM = R::kM;
-  constexpr int kBq = block_q<T, D>();
+  constexpr int kStages = R::kStages;
+  constexpr int kTileK = R::kTileK;
+  constexpr int kBq = block_q<T, DP>();
+  constexpr int kChunk = 16 / static_cast<int>(sizeof(T));
+  constexpr int kPerRow = DP / kChunk;  // 16-byte chunks of a padded row
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);              // [kStages][kBlockK][kLd]
-  T* vs = ks + kStages * kBlockK * R::kLd;
+  T* ks = reinterpret_cast<T*>(smem);              // [kStages][kTileK][kLd]
+  T* vs = ks + kStages * kTileK * R::kLd;          // [kStages][kTileK][kLd]
+  T* qs = vs + kStages * kTileK * R::kLd;          // [kBq][kLd] when kQSmem
 
   const int n_qt = (S + kBq - 1) / kBq;
   const int qt = blockIdx.x % n_qt;
   const int split = blockIdx.x / n_qt;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
+  // this split's key range, [kt0, kt1) in split tiles of kBlockK keys, walked
+  // in shared-memory tiles of kTileK keys from tile t0; each holds a key < S
   const int n_kt = (S + kBlockK - 1) / kBlockK;
   const int kt0 = static_cast<int>(static_cast<long long>(split) * n_kt / n_split);
-  const int n_tiles = static_cast<int>(static_cast<long long>(split + 1) * n_kt / n_split) - kt0;
+  const int kt1 = static_cast<int>(static_cast<long long>(split + 1) * n_kt / n_split);
+  const int t0 = kt0 * (kBlockK / kTileK);
+  const int n_tiles = min(kt1 * (kBlockK / kTileK), (S + kTileK - 1) / kTileK) - t0;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int t = lane % 4;
-  const int r0 = qt * kBq + (threadIdx.x / 32) * 16 * kM + g;  // row r0 + 16 mi + 8 r
+  const int wrow = (threadIdx.x / 32) * 16 * kM + g;  // row wrow + 16 mi + 8 r of the tile
+  const int r0 = qt * kBq + wrow;
   const T* kb = k + b * st.k_sb + h * st.k_sh;
   const T* vb = v + b * st.v_sb + h * st.v_sh;
+  const T* qb = q + b * st.q_sb + h * st.q_sh;
 
-  if constexpr (R::kDp > D) {  // zero K's padding columns once; copies never touch them
-    for (int i = threadIdx.x; i < kStages * kBlockK * (R::kDp - D); i += kThreads)
-      ks[(i / (R::kDp - D)) * R::kLd + D + i % (R::kDp - D)] = __float2bfloat16(0.f);
+  if (D < DP) {  // zero the padding columns of every staged row once; copies never touch them
+    const int pad = DP - D;
+    const int rows = 2 * kStages * kTileK + (R::kQSmem ? kBq : 0);
+    for (int i = threadIdx.x; i < rows * pad; i += kThreads)
+      set_zero(ks + (i / pad) * R::kLd + D + i % pad);
   }
 
-  auto load_tile = [&](int i) {  // key tile kt0 + i into stage i % kStages
-    constexpr int kChunk = 16 / static_cast<int>(sizeof(T));
-    constexpr int kPerRow = D / kChunk;
-    T* kd = ks + (i % kStages) * kBlockK * R::kLd;
-    T* vd = vs + (i % kStages) * kBlockK * R::kLd;
-    const int key0 = (kt0 + i) * kBlockK;
+  auto load_tile = [&](int i) {  // key tile t0 + i into stage i % kStages
+    T* kd = ks + (i % kStages) * kTileK * R::kLd;
+    T* vd = vs + (i % kStages) * kTileK * R::kLd;
+    const int key0 = (t0 + i) * kTileK;
 #pragma unroll
-    for (int it = 0; it < (kBlockK * kPerRow + kThreads - 1) / kThreads; ++it) {
+    for (int it = 0; it < (kTileK * kPerRow + kThreads - 1) / kThreads; ++it) {
       const int c = threadIdx.x + it * kThreads;
-      if (c >= kBlockK * kPerRow) break;
+      if (c >= kTileK * kPerRow) break;
       const int j = c / kPerRow;
       const int col = (c % kPerRow) * kChunk;
+      if (col >= D) continue;
       const bool ok = key0 + j < S;
       const long long key = ok ? key0 + j : 0;
       cp_async16(kd + j * R::kLd + col, kb + key * st.k_ss + col, ok);
@@ -371,47 +408,91 @@ patch_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   };
 
+  if constexpr (R::kQSmem) {  // Q's tile, rows past S zero; joins the first commit group
+    for (int c = threadIdx.x; c < kBq * kPerRow; c += kThreads) {
+      const int j = c / kPerRow;
+      const int col = (c % kPerRow) * kChunk;
+      const int row = qt * kBq + j;
+      if (col < D)
+        cp_async16(qs + j * R::kLd + col, qb + (row < S ? row : 0) * st.q_ss + col, row < S);
+    }
+  }
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
     if (i < n_tiles) load_tile(i);
     cp_async_commit();
   }
 
-  typename R::QFrag qf;
-  R::load_q(qf, q + b * st.q_sb + h * st.q_sh, st.q_ss, r0, S, t);
+  typename R::AFrag qf[R::kQSmem ? 1 : R::kSteps];  // Q's fragments, every k-step
+  if constexpr (!R::kQSmem) {
+#pragma unroll
+    for (int kk = 0; kk < R::kSteps; ++kk) R::load_a(qf[kk], qb, st.q_ss, r0, S, kk, t, D);
+  }
 
-  float acc[kM][D / 8][4];
+  float acc[kM][DP / 8][4];
   float m[kM][2];  // running max of the raw scores, rows r0 + 16 mi + 8 r
   float l[kM][2];  // this thread's part of the running sum
 #pragma unroll
   for (int mi = 0; mi < kM; ++mi) {
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < DP / 8; ++n)
       acc[mi][n][0] = acc[mi][n][1] = acc[mi][n][2] = acc[mi][n][3] = 0.f;
     m[mi][0] = m[mi][1] = -INFINITY;
     l[mi][0] = l[mi][1] = 0.f;
   }
 
   for (int i = 0; i < n_tiles; ++i) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // tile i has landed; tile i-1's stage is free again
-    if (i + kStages - 1 < n_tiles) load_tile(i + kStages - 1);
-    cp_async_commit();
+    if constexpr (kStages > 1) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();  // tile i has landed; tile i-1's stage is free again
+      if (i + kStages - 1 < n_tiles) load_tile(i + kStages - 1);
+      cp_async_commit();
+    } else {
+      if (i > 0) __syncthreads();  // every warp is done with tile i-1
+      load_tile(i);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
 
-    const T* kst = ks + (i % kStages) * kBlockK * R::kLd;
-    const T* vst = vs + (i % kStages) * kBlockK * R::kLd;
-    float s[kM][kBlockK / 8][4];
+    const T* kst = ks + (i % kStages) * kTileK * R::kLd;
+    const T* vst = vs + (i % kStages) * kTileK * R::kLd;
+    float s[kM][kTileK / 8][4];
 #pragma unroll
     for (int mi = 0; mi < kM; ++mi)
 #pragma unroll
-      for (int j = 0; j < kBlockK / 8; ++j)
+      for (int j = 0; j < kTileK / 8; ++j)
         s[mi][j][0] = s[mi][j][1] = s[mi][j][2] = s[mi][j][3] = 0.f;
-    R::scores(s, qf, kst, g, t);
-
-    const int key0 = (kt0 + i) * kBlockK;
-    if (key0 + kBlockK > S) {  // the ragged last tile
+    // s[mi][j] = q k^T over keys 8j..8j+7 of the tile, k-steps in order
+    if constexpr (R::kQSmem) {  // one k-step's Q fragments at a time
 #pragma unroll
-      for (int j = 0; j < kBlockK / 8; ++j)
+      for (int kk = 0; kk < R::kSteps; ++kk) {
+        typename R::AFrag a;
+        R::load_a(a, qs, R::kLd, wrow, kBq, kk, t, DP);
+#pragma unroll
+        for (int j = 0; j < kTileK / 8; ++j) {
+          typename R::BFrag bf;
+          R::load_b(bf, kst, j, kk, g, t);
+#pragma unroll
+          for (int mi = 0; mi < kM; ++mi) R::mma(s[mi][j], a, mi, bf);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kTileK / 8; ++j)
+#pragma unroll
+        for (int kk = 0; kk < R::kSteps; ++kk) {
+          typename R::BFrag bf;
+          R::load_b(bf, kst, j, kk, g, t);
+#pragma unroll
+          for (int mi = 0; mi < kM; ++mi) R::mma(s[mi][j], qf[kk], mi, bf);
+        }
+    }
+
+    const int key0 = (t0 + i) * kTileK;
+    if (key0 + kTileK > S) {  // the ragged last tile
+#pragma unroll
+      for (int j = 0; j < kTileK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           if (key0 + j * 8 + 2 * t + (e & 1) >= S) {
@@ -425,7 +506,7 @@ patch_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int mi = 0; mi < kM; ++mi) {
       float mx[2] = {m[mi][0], m[mi][1]};
 #pragma unroll
-      for (int j = 0; j < kBlockK / 8; ++j) {
+      for (int j = 0; j < kTileK / 8; ++j) {
         mx[0] = fmaxf(mx[0], fmaxf(s[mi][j][0], s[mi][j][1]));
         mx[1] = fmaxf(mx[1], fmaxf(s[mi][j][2], s[mi][j][3]));
       }
@@ -437,14 +518,14 @@ patch_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         m[mi][r] = mx[r];
         l[mi][r] *= corr;
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
+        for (int n = 0; n < DP / 8; ++n) {
           acc[mi][n][2 * r] *= corr;
           acc[mi][n][2 * r + 1] *= corr;
         }
       }
       const float mc[2] = {m[mi][0] * scale_log2, m[mi][1] * scale_log2};
 #pragma unroll
-      for (int j = 0; j < kBlockK / 8; ++j)
+      for (int j = 0; j < kTileK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           s[mi][j][e] = ex2(fmaf(s[mi][j][e], scale_log2, -mc[e >> 1]));
@@ -455,6 +536,7 @@ patch_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   cp_async_wait<0>();
 
+  // columns 8n + 2t, 8n + 2t + 1; D is even, so a pair is stored whole or not at all
   const long long rows = static_cast<long long>(gridDim.z) * S * H;
 #pragma unroll
   for (int mi = 0; mi < kM; ++mi)
@@ -470,14 +552,15 @@ patch_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float inv = 1.f / sum;
         T* op = o + orow * D + 2 * t;
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-          store2(op + n * 8, acc[mi][n][2 * r] * inv, acc[mi][n][2 * r + 1] * inv);
+        for (int n = 0; n < DP / 8; ++n)
+          if (n * 8 + 2 * t < D)
+            store2(op + n * 8, acc[mi][n][2 * r] * inv, acc[mi][n][2 * r + 1] * inv);
       } else {
         const long long prow = split * rows + orow;
         float* pp = part_o + prow * D + 2 * t;
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-          store2(pp + n * 8, acc[mi][n][2 * r], acc[mi][n][2 * r + 1]);
+        for (int n = 0; n < DP / 8; ++n)
+          if (n * 8 + 2 * t < D) store2(pp + n * 8, acc[mi][n][2 * r], acc[mi][n][2 * r + 1]);
         if (t == 0) store2(part_ml + prow * 2, m[mi][r] * scale_log2, sum);
       }
     }
@@ -506,23 +589,24 @@ patch_attention_combine(const float* __restrict__ part_o, const float* __restric
   }
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, float* part_o,
-                     float* part_ml, int B, int S, int H, int n_split, const Strides& st,
+                     float* part_ml, int B, int S, int H, int D, int n_split, const Strides& st,
                      float scale, cudaStream_t stream) {
-  constexpr int kSmem = smem_bytes<T, D>();
+  constexpr int kSmem = smem_bytes<T, DP>();
+  static_assert(kSmem <= 232448, "an instance needs at most 227 KB of shared memory");
   static bool configured = false;  // the shared-memory opt-in, once per instance
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        patch_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        patch_attention_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const int n_qt = (S + block_q<T, D>() - 1) / block_q<T, D>();
+  const int n_qt = (S + block_q<T, DP>() - 1) / block_q<T, DP>();
   const dim3 grid(n_qt * n_split, H, B);
-  patch_attention_kernel<T, D><<<grid, kThreads, kSmem, stream>>>(
+  patch_attention_kernel<T, DP><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), part_o, part_ml, S, H, n_split, st, scale * kLog2e);
+      static_cast<T*>(o), part_o, part_ml, S, H, D, n_split, st, scale * kLog2e);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
   const long long rows = static_cast<long long>(B) * S * H;
@@ -539,6 +623,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* p
                    long long k_sh, long long v_sb, long long v_ss, long long v_sh, float scale,
                    void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || B > 65535 || H > 65535) return cudaErrorInvalidValue;
+  if (instance_width(D) == 0 || D * sizeof(T) % 16 != 0) return cudaErrorInvalidValue;
   const int n_kt = (S + kBlockK - 1) / kBlockK;
   if (n_split < 1 || n_split > n_kt) return cudaErrorInvalidValue;
   if (n_split > 1 && (part_o == nullptr || part_ml == nullptr)) return cudaErrorInvalidValue;
@@ -546,38 +631,52 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* p
   float* po = static_cast<float*>(part_o);
   float* pml = static_cast<float*>(part_ml);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 8: return launch_d<T, 8>(q, k, v, o, po, pml, B, S, H, n_split, st, scale, s);
-    case 16: return launch_d<T, 16>(q, k, v, o, po, pml, B, S, H, n_split, st, scale, s);
-    case 32: return launch_d<T, 32>(q, k, v, o, po, pml, B, S, H, n_split, st, scale, s);
-    case 64: return launch_d<T, 64>(q, k, v, o, po, pml, B, S, H, n_split, st, scale, s);
+  switch (instance_width(D)) {
+    case 16: return launch_d<T, 16>(q, k, v, o, po, pml, B, S, H, D, n_split, st, scale, s);
+    case 32: return launch_d<T, 32>(q, k, v, o, po, pml, B, S, H, D, n_split, st, scale, s);
+    case 48: return launch_d<T, 48>(q, k, v, o, po, pml, B, S, H, D, n_split, st, scale, s);
+    case 64: return launch_d<T, 64>(q, k, v, o, po, pml, B, S, H, D, n_split, st, scale, s);
+    case 80: return launch_d<T, 80>(q, k, v, o, po, pml, B, S, H, D, n_split, st, scale, s);
+    case 96: return launch_d<T, 96>(q, k, v, o, po, pml, B, S, H, D, n_split, st, scale, s);
+    case 128: return launch_d<T, 128>(q, k, v, o, po, pml, B, S, H, D, n_split, st, scale, s);
+    case 160: return launch_d<T, 160>(q, k, v, o, po, pml, B, S, H, D, n_split, st, scale, s);
+    case 192: return launch_d<T, 192>(q, k, v, o, po, pml, B, S, H, D, n_split, st, scale, s);
+    case 256: return launch_d<T, 256>(q, k, v, o, po, pml, B, S, H, D, n_split, st, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
 int block_q_of(int D) {
-  switch (D) {
-    case 8: return block_q<T, 8>();
+  switch (instance_width(D)) {
     case 16: return block_q<T, 16>();
     case 32: return block_q<T, 32>();
+    case 48: return block_q<T, 48>();
     case 64: return block_q<T, 64>();
+    case 80: return block_q<T, 80>();
+    case 96: return block_q<T, 96>();
+    case 128: return block_q<T, 128>();
+    case 160: return block_q<T, 160>();
+    case 192: return block_q<T, 192>();
+    case 256: return block_q<T, 256>();
     default: return 0;
   }
 }
 
 }  // namespace
 
-// Query rows per block of the (bf16 ? bf16 : fp32, D) instance, which the
-// wrapper's split rule counts blocks with.
+// Query rows per block of the instance that runs head dim D (bf16 ? bf16 :
+// fp32), which the wrapper's split rule counts blocks with.
 extern "C" cudaError_t ps_patch_attention_block_q(int bf16, int D, int* rows) {
   *rows = bf16 ? block_q_of<__nv_bfloat16>(D) : block_q_of<float>(D);
   return *rows > 0 ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// Strides are in elements; the head dimension must have unit stride, and every
-// base pointer and stride must be 16-byte aligned. part_o (n_split, B*S*H, D)
-// and part_ml (n_split, B*S*H, 2) are fp32 scratch, unused when n_split == 1.
+// Strides are in elements; the head dimension must have unit stride, D *
+// sizeof(T) a multiple of 16, and every base pointer and stride 16-byte
+// aligned. scale multiplies q k^T (the caller's D^-0.5). part_o (n_split,
+// B*S*H, D) and part_ml (n_split, B*S*H, 2) are fp32 scratch, unused when
+// n_split == 1.
 extern "C" cudaError_t ps_patch_attention_f32(const void* q, const void* k, const void* v,
                                               void* o, void* part_o, void* part_ml, int B,
                                               int S, int H, int D, int n_split,

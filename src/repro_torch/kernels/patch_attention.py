@@ -11,18 +11,38 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import BLOCK_K, ref_attention
 
 _LAUNCHERS = {torch.float32: "ps_patch_attention_f32",
               torch.bfloat16: "ps_patch_attention_bf16"}
-HEAD_DIMS = (8, 16, 32, 64)
+# the padded head dims with a kernel instance (kWidths in csrc/patch_attention.cu,
+# which a test holds equal); head dim D runs in the smallest width >= D
+INSTANCE_WIDTHS = (16, 32, 48, 64, 80, 96, 128, 160, 192, 256)
+MAX_HEAD_DIM = INSTANCE_WIDTHS[-1]
 
 
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"patch_attention: {msg}")
+
+
+def instance_width(D: int) -> int:
+    """The padded head dim of the kernel instance that runs head dim ``D``;
+    raises ``ValueError`` outside 1..MAX_HEAD_DIM."""
+    _check(1 <= D <= MAX_HEAD_DIM,
+           f"head dim {D} not in 1..{MAX_HEAD_DIM} (the kernel's widest instance)")
+    return next(w for w in INSTANCE_WIDTHS if w >= D)
+
+
+def row_width(D: int, element_size: int) -> int:
+    """The head dim the kernel is handed for ``D``: ``D`` itself when a row
+    is whole 16-byte chunks, else the next width that is (the wrapper
+    zero-pads q, k and v to it in a copy and drops the extra columns of o)."""
+    chunk = 16 // element_size
+    return -(-D // chunk) * chunk
 
 
 def split_kv(B: int, S: int, H: int, n_sm: int, block_q: int) -> int:
@@ -46,8 +66,8 @@ def sm_count(index: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def block_q(dtype: torch.dtype, D: int) -> int:
-    """Query rows per block of the kernel instance for (dtype, D), as the
-    library reports it (it builds the library)."""
+    """Query rows per block of the kernel instance that runs (dtype, D), as
+    the library reports it (it builds the library)."""
     rows = ctypes.c_int()
     build.check(build.library().ps_patch_attention_block_q(
         int(dtype == torch.bfloat16), D, ctypes.byref(rows)), "patch_attention block_q")
@@ -57,42 +77,47 @@ def block_q(dtype: torch.dtype, D: int) -> int:
 def patch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """q,k,v: (B, S, H, D), any strides with unit stride over D ->
     (B, S, H, D) contiguous full bidirectional attention, scale D**-0.5.
-    On CUDA every base pointer and stride must be 16-byte aligned."""
+    On CUDA 1 <= D <= 256, and every base pointer and stride must be 16-byte
+    aligned; a D whose rows are not whole 16-byte chunks (bf16 D % 8, fp32
+    D % 4) runs on zero-padded copies (``row_width``)."""
     if q.device.type == "cpu":
         return ref_attention(q, k, v)
     _check(q.device.type == "cuda", f"unsupported device {q.device}")
     _check(q.dim() == 4, f"expected (B, S, H, D), got {tuple(q.shape)}")
     B, S, H, D = q.shape
     _check(q.dtype in _LAUNCHERS, f"unsupported dtype {q.dtype}")
-    _check(D in HEAD_DIMS, f"head dim {D} not in {HEAD_DIMS}")
+    instance_width(D)     # raises past MAX_HEAD_DIM
     for t in (k, v):
         _check(t.shape == q.shape and t.dtype == q.dtype and t.device == q.device,
                "q, k and v must share shape, dtype and device")
     es = q.element_size()
+    Dk = row_width(D, es)
+    if Dk != D:   # a layout copy: the zero columns add nothing to q k^T
+        q, k, v = (F.pad(t, (0, Dk - D)) for t in (q, k, v))
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(t.stride(3) == 1, "the head dimension must have unit stride")
         _check(t.data_ptr() % 16 == 0
                and all(st * es % 16 == 0 for st, n in zip(t.stride()[:3], t.shape) if n > 1),
                f"{name} needs a 16-byte aligned base pointer and batch, row and head "
                f"strides (the kernel copies 16-byte chunks), got strides {t.stride()}")
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     if q.numel() == 0:
-        return out
+        return torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, S, H, Dk), dtype=q.dtype, device=q.device)
     n_split = split_kv(B, S, H, sm_count(q.device.index), block_q(q.dtype, D))
     part_o = part_ml = None
     if n_split > 1:
-        part_o = torch.empty((n_split, B * S * H, D), dtype=torch.float32, device=q.device)
+        part_o = torch.empty((n_split, B * S * H, Dk), dtype=torch.float32, device=q.device)
         part_ml = torch.empty((n_split, B * S * H, 2), dtype=torch.float32, device=q.device)
     fn = getattr(build.library(), _LAUNCHERS[q.dtype])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    None if part_o is None else part_o.data_ptr(),
                    None if part_ml is None else part_ml.data_ptr(),
-                   B, S, H, D, n_split, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                   B, S, H, Dk, n_split, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                    D ** -0.5, stream),
                 "patch_attention")
     patch_attention.launches += 1
-    return out
+    return out if Dk == D else out[..., :D].contiguous()
 
 
 patch_attention.launches = 0

@@ -9,8 +9,10 @@ import torch
 
 from repro_torch.core.stitcher import gather_halo
 
-# Keys per tile of the attention kernel: kBlockK in csrc/patch_attention.cu,
-# which a test holds equal. The wrapper's split rule and key_ranges count in it.
+# Keys per tile of the attention kernel's split-KV cut: kBlockK in
+# csrc/patch_attention.cu, which a test holds equal (an instance may walk a
+# tile as smaller shared-memory tiles). The wrapper's split rule and
+# key_ranges count in it.
 BLOCK_K = 64
 
 

@@ -74,6 +74,24 @@ def test_split_ranges_are_whole_nonempty_tiles(B, H, n_sm, block_q):
             assert a < b == c and a % BLOCK_K == 0, (S, n, ranges)
 
 
+# the smallest B * H group of each public head dim on the main path: PixArt-α's
+# DiT (H = 16, D = 72) and SD 1.5's UNet (H = 8, D = 40 / 80 / 160 at levels
+# 0 / 1 / 2) at latents 32², 48², 64²
+PUBLIC_GROUPS = [(1, S, 16) for S in (1024, 2304, 4096)] + [
+    (1, S, 8) for S in (64, 144, 256, 576, 1024, 2304, 4096)]
+
+
+@pytest.mark.parametrize("block_q", [64, 128])    # every instance reports one of the two
+@pytest.mark.parametrize("B,S,H", PUBLIC_GROUPS)
+def test_split_rule_fills_the_card_at_each_public_group(B, S, H, block_q):
+    """At one request per group, the split reaches 132 blocks, or, where the
+    sequence is too short for that, takes every key tile (one range each)."""
+    n = split_kv(B, S, H, H100_SMS, block_q)
+    tiles = -(-S // BLOCK_K)
+    assert 1 <= n <= tiles
+    assert B * H * -(-S // block_q) * n >= H100_SMS or n == tiles
+
+
 @pytest.mark.parametrize("B,S,H,block_q", [(2, 4096, 4, 128), (1, 4096, 4, 64),
                                            (1, 2304, 4, 64), (4, 1024, 8, 128)])
 def test_no_split_when_the_grid_fills_the_card(B, S, H, block_q):
@@ -81,13 +99,20 @@ def test_no_split_when_the_grid_fills_the_card(B, S, H, block_q):
     assert split_kv(B, S, H, H100_SMS, block_q) == 1
 
 
-@pytest.mark.parametrize("bits,passes,tol", [(7, 3, 1e-4),     # fp32 kernel: 3xbf16
-                                             (7, 1, 3e-2),     # bf16 kernel
-                                             (10, 3, 1e-4)])   # 3xTF32, the alternative
-def test_emulated_products_hold_the_tolerance_at_s4096(bits, passes, tol):
-    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 4096, 1, 32, seed=7))
+EMULATED = [(7, 3, 1e-4),     # fp32 kernel: 3xbf16
+            (7, 1, 3e-2),     # bf16 kernel
+            (10, 3, 1e-4)]    # 3xTF32, the alternative
+
+
+@pytest.mark.parametrize("bits,passes,tol,D", [  # D = 32 keeps its first ids
+    pytest.param(*case, D, id="-".join(map(str, case)) + ("" if D == 32 else f"-D{D}"))
+    for D in (32, 72, 160, 256) for case in EMULATED])
+def test_emulated_products_hold_the_tolerance_at_s4096(bits, passes, tol, D):
+    """The kernel's rounding at S = 4096, from the UNet's D = 32 to the
+    widest instance; padded columns are zeros and add nothing."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 4096, 1, D, seed=7))
     err = (ref.emulated_attention(q, k, v, bits, passes) - ref.ref_attention(q, k, v)).abs()
-    print(f"emulated attention, {bits} mantissa bits x {passes} passes: "
+    print(f"emulated attention D={D}, {bits} mantissa bits x {passes} passes: "
           f"max_abs_err {float(err.max()):.3e} (tol {tol:g})")
     assert float(err.max()) <= tol
 

@@ -19,7 +19,8 @@ from repro_torch.core.patching import split as tsplit  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.groupnorm_stitch import (  # noqa: E402
     gn_partials, gn_stitch, groupnorm_stitch)
-from repro_torch.kernels.patch_attention import patch_attention  # noqa: E402
+from repro_torch.kernels.patch_attention import (  # noqa: E402
+    INSTANCE_WIDTHS, MAX_HEAD_DIM, block_q, instance_width, patch_attention, split_kv)
 
 ATTN_SWEEP = [  # tests/test_kernels.py::test_patch_attention_sweep, plus a main-path S
     (2, 100, 4, 32, "float32"),
@@ -34,7 +35,13 @@ ATTN_SWEEP = [  # tests/test_kernels.py::test_patch_attention_sweep, plus a main
     (1, 65, 2, 8, "bfloat16"),        # D=8 padded to the MMA depth, ragged tail
     (1, 1024, 4, 16, "float32"),      # SD3-lite's own heads: fp32 also at dtype="bfloat16"
     (1, 4096, 4, 16, "float32"),
-]
+] + [  # public head dims, both dtypes, with split-KV (B=1, S=1024) and without (B=2, S=4096)
+    (B, S, 4, D, dtype) for D in (12, 24, 40, 72, 80, 128, 160, 256)
+    for B, S in ((1, 1024), (2, 4096)) for dtype in ("float32", "bfloat16")]
+# query rows per block of each instance: 4 warps x 16 rows x the m16 tiles a
+# warp owns (csrc/patch_attention.cu, Route::kM)
+INSTANCE_BLOCK_Q = {**{("float32", w): 128 if w <= 32 else 64 for w in INSTANCE_WIDTHS},
+                    **{("bfloat16", w): 128 if w <= 64 else 64 for w in INSTANCE_WIDTHS}}
 
 
 def _tol(dtype, bf16_tol):
@@ -170,11 +177,12 @@ def test_patch_attention_kernel_matches_plain_on_cuda(B, S, H, D, dtype):
 
 
 @pytest.mark.cuda
-def test_patch_attention_rejects_misaligned_views_on_cuda():
+@pytest.mark.parametrize("D", [16, 72])
+def test_patch_attention_rejects_misaligned_views_on_cuda(D):
     """The kernel copies 16-byte chunks: a base pointer or stride off 16 bytes
     raises before anything is launched."""
     _need_cuda()
-    B, S, H, D = 1, 64, 2, 16
+    B, S, H = 1, 64, 2
     flat = torch.randn(B * S * H * D + 1, device="cuda")
     shifted = flat[1:].view(B, S, H, D)                       # base off by 4 bytes
     padded = torch.randn(B, S, H * D + 1, device="cuda")[..., :H * D].view(B, S, H, D)
@@ -184,3 +192,45 @@ def test_patch_attention_rejects_misaligned_views_on_cuda():
         with pytest.raises(ValueError, match="16-byte"):
             patch_attention(q, k, v)
     assert patch_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_patch_attention_refuses_head_dims_past_the_widest_instance_on_cuda(dtype):
+    _need_cuda()
+    x = torch.zeros(1, 16, 2, MAX_HEAD_DIM + 1, device="cuda", dtype=getattr(torch, dtype))
+    before = patch_attention.launches
+    with pytest.raises(ValueError, match=f"head dim {MAX_HEAD_DIM + 1} not in 1..{MAX_HEAD_DIM}"):
+        patch_attention(x, x, x)
+    assert patch_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_every_instance_reports_its_block_rows_on_cuda(dtype):
+    """The rows the split rule counts: the library's per instance, the same
+    for every head dim the instance runs."""
+    _need_cuda()
+    t = getattr(torch, dtype)
+    for D in range(1, MAX_HEAD_DIM + 1):
+        assert block_q(t, D) == INSTANCE_BLOCK_Q[(dtype, instance_width(D))], D
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_every_head_dim_matches_plain_on_cuda(dtype):
+    """D = 1..256 at a small shape that takes the split-KV path, unaligned
+    rows (padded in a copy) included."""
+    _need_cuda()
+    gen = torch.Generator().manual_seed(1)
+    t = getattr(torch, dtype)
+    for D in range(1, MAX_HEAD_DIM + 1):
+        q, k, v = torch.randn(1, 100, 3, 2, D, generator=gen).to("cuda", t).unbind(dim=2)
+        assert split_kv(1, 100, 2, torch.cuda.get_device_properties(0).multi_processor_count,
+                        block_q(t, D)) == 2
+        got = patch_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert got.shape == (1, 100, 2, D) and got.is_contiguous()
+        tol = _tol(dtype, 3e-2)
+        torch.testing.assert_close(got.float(), ref.ref_attention(q, k, v).float(),
+                                   rtol=tol, atol=tol, msg=lambda m: f"D={D}: {m}")
