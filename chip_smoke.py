@@ -15,11 +15,18 @@ Phases, each of which must pass:
    UNet's D = 32, at SD3-lite's own D = 16 and at public models' head dims
    (D = 40, 72, 80, 128, 160 at B = 1, S = 1024 and 4096, H = 16 for D = 72
    and 8 for the others, each row naming its kernel instance's width); every
-   D from 1 to 256 in both dtypes at two small shapes, and D = 257 raising
-   on the card. GN-stitch is the
+   D from 1 to 512 and D = 1024 in fp32, bf16 and fp16 at two small shapes,
+   and D = 0 raising on the card. GN-stitch is the
    whole ``fused_groupnorm_stitch`` call (partial sums, then the stitch),
    timed inside a CUDA graph, which also shows it makes no host round trip;
-   its two kernels are timed alone as well;
+   its two kernels are timed alone as well. Then the rest of what the TPU
+   kernels take, off the main path, timed the same way: attention with keys
+   of another length than the queries (4096 queries over PixArt-α's 120 and
+   SD 1.5's 77 text tokens, and 77 over 4096), at D = 320 and 512 (column
+   slices of the widest instance) at S = 1024 and 4096, and in fp16;
+   GN-stitch at SD 1.5's widest level with per-channel statistics (G = C =
+   1280, past the stitch's 512 shared-memory groups) and in fp16; and a
+   sweep of G = 513, 640, 1024 and C in the three dtypes;
 3. one SDXL-lite and one SD3-lite sampler step with the kernels against the
    same step through the plain path, and the UNet step's device time by
    kernel, the attention's kernel and combine summed, the GroupNorm+stitch
@@ -186,7 +193,7 @@ from repro_torch.kernels.groupnorm_stitch import (  # noqa: E402
     gn_partials, gn_stitch, groupnorm_stitch)
 from repro_torch.kernels.ops import fused_groupnorm_stitch  # noqa: E402
 from repro_torch.kernels.patch_attention import (  # noqa: E402
-    MAX_HEAD_DIM, block_q, instance_width, patch_attention, split_kv)
+    SLICE_WIDTH, block_q, column_slices, instance_width, patch_attention, split_kv)
 from repro_torch.kernels.ref import (  # noqa: E402
     ref_attention, ref_gn_finalize, ref_gn_partials, ref_groupnorm_stitch)
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
@@ -210,16 +217,32 @@ from repro_torch.optim import (adafactor_init, adafactor_update, adamw_init,  # 
 
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.float32: 67e12,            # GN-stitch: fp32 outside the tensor cores
-              torch.bfloat16: 989e12}
-BF16_MMA_FLOPS = 989e12                        # dense tensor cores, data sheet
+              torch.bfloat16: 989e12, torch.float16: 989e12}
+BF16_MMA_FLOPS = 989e12                        # dense tensor cores (bf16 and fp16), data sheet
 EXP2_PER_S = 3.9e12                            # 16 ex2/clock/SM x 132 SMs x ~1.83 GHz
 TOL = {torch.float32: {"gn": 1e-4, "attn": 1e-4},
-       torch.bfloat16: {"gn": 2e-2, "attn": 3e-2}}
+       torch.bfloat16: {"gn": 2e-2, "attn": 3e-2},
+       torch.float16: {"gn": 2e-2, "attn": 3e-2}}
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 CHIP_RES = [(64, 64), (96, 96), (128, 128)]    # 512/768/1024-pixel SD requests
 # (level, C) of SDXL-lite's GroupNorm+stitch calls: each level's ResBlocks, and
 # the decoder's, whose input is the skip concatenation
 GN_LEVELS = ((0, 64), (0, 128), (1, 128), (1, 256))
 PUBLIC_HEAD_DIMS = (40, 72, 80, 128, 160)
+# (B, S, Sk, H, D): keys of another length than the queries (PixArt-α's 120
+# and SD 1.5's 77 text tokens under 4096 image queries, and the reverse), and
+# head dims past the widest instance (column slices), each in fp32 and bf16
+DOMAIN_ATTENTION = ((1, 4096, 120, 16, 72), (1, 4096, 77, 8, 40), (1, 77, 4096, 8, 40),
+                    (1, 1024, 1024, 8, 320), (1, 4096, 4096, 8, 320),
+                    (1, 1024, 1024, 8, 512), (1, 4096, 4096, 8, 512))
+# (B, S, H, D) in fp16: the UNet's D = 32 row, PixArt-α's and SD 1.5's level 0
+FP16_ATTENTION = ((2, 4096, 4, 32), (1, 4096, 16, 72), (1, 4096, 8, 40))
+# (level, C, G) of GN-stitch past the stitch's shared statistics: SD 1.5's
+# widest level with per-channel statistics, and with its own 32 groups
+GN_DOMAIN = ((2, 1280, 1280), (2, 1280, 32))
+# (C, G) of the groups sweep: past 512 groups, per-channel at SD 1.5's
+# widths, two partials chunks, groups of two channels
+GN_GROUPS = ((1026, 513), (640, 640), (2048, 1024), (1280, 1280))
 KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
     "groupnorm_stitch": (groupnorm_stitch, "src/repro_torch/kernels/csrc/groupnorm_stitch.cu",
                          "src/repro/kernels/groupnorm_stitch.py:128"),
@@ -261,18 +284,21 @@ def cuda_ms(fn, calls: int = 10, replays: int = 5) -> float:
     return start.elapsed_time(end) / (calls * replays)
 
 
-def attention_bound(B: int, S: int, H: int, D: int, dtype) -> tuple:
-    """(least ms the card could take, the term that sets it): the largest of
-    q, k, v read and o written once over the HBM rate; the MMA flops over
-    the bf16 tensor-core peak, three passes for fp32 (3xbf16) and one for
-    bf16; and the B*H*S*S exponentials over the SFU rate."""
-    flops = 4 * B * H * S * S * D
-    terms = {"bytes": 4 * B * S * H * D * (torch.finfo(dtype).bits // 8) / HBM_BYTES_PER_S,
-             "exp": B * H * S * S / EXP2_PER_S}
+def attention_bound(B: int, S: int, H: int, D: int, dtype, Sk: int | None = None) -> tuple:
+    """(least ms the card could take, the term that sets it) for S queries
+    and Sk keys (S when None): the largest of q, k, v read and o written once
+    over the HBM rate; the MMA flops over the 16-bit tensor-core peak, three
+    passes for fp32 (3xbf16) and one for bf16 and fp16; and the B*H*S*Sk
+    exponentials over the SFU rate."""
+    Sk = S if Sk is None else Sk
+    flops = 4 * B * H * S * Sk * D
+    terms = {"bytes": 2 * B * (S + Sk) * H * D * (torch.finfo(dtype).bits // 8)
+             / HBM_BYTES_PER_S,
+             "exp": B * H * S * Sk / EXP2_PER_S}
     if dtype == torch.float32:
         terms["mma_3xbf16"] = 3 * flops / BF16_MMA_FLOPS
     else:
-        terms["mma_bf16"] = flops / BF16_MMA_FLOPS
+        terms[f"mma_{'bf16' if dtype == torch.bfloat16 else 'f16'}"] = flops / BF16_MMA_FLOPS
     term = max(terms, key=terms.get)
     return terms[term] * 1e3, term
 
@@ -334,41 +360,43 @@ def ptxas_summary(text: str) -> list:
 # phase 2
 # ---------------------------------------------------------------------------
 
-def gn_rows(dev, gen, level: int, C: int, res: list, patch: int, dtype, modes) -> list:
-    """The whole GroupNorm+stitch call on the CSP of ``res`` cut into
-    ``patch``-sided patches, for each statistics mode in ``modes``: held
-    against the plain composite and the plain version, and timed in a CUDA
-    graph beside its bound, the plain version and each kernel alone."""
+def gn_rows(dev, gen, level: int, C: int, res: list, patch: int, dtype, modes,
+            G: int = 8) -> list:
+    """The whole GroupNorm+stitch call with ``G`` groups on the CSP of
+    ``res`` cut into ``patch``-sided patches, for each statistics mode in
+    ``modes``: held against the plain composite and the plain version, and
+    timed in a CUDA graph beside its bound, the plain version and each kernel
+    alone."""
     imgs = [torch.randn(h, w, C, generator=gen).to(dev, dtype) for h, w in res]
     csp, patches = split(imgs, patch=patch)
     scale = torch.randn(C, generator=gen).to(dev)
     bias = torch.randn(C, generator=gen).to(dev)
     P, p = patches.shape[0], patches.shape[1]
     meta = csp_device(csp, dev)
-    part = gn_partials(patches, 8)
-    # sums of p*p*C/8 terms in another order, fp32 in both
-    part_err = max_err(part, ref_gn_partials(patches, 8), 1e-4,
-                       f"gn_partials level {level} p={p} C={C} {dtype}", atol=1e-3)
-    partials_ms = cuda_ms(lambda: gn_partials(patches, 8))
+    part = gn_partials(patches, G)
+    # sums of p*p*C/G terms in another order, fp32 in both
+    part_err = max_err(part, ref_gn_partials(patches, G), 1e-4,
+                       f"gn_partials level {level} p={p} C={C} G={G} {dtype}", atol=1e-3)
+    partials_ms = cuda_ms(lambda: gn_partials(patches, G))
     rows = []
     for exact in modes:
         def whole(exact=exact):
-            return fused_groupnorm_stitch(csp, patches, scale, bias, 8, exact=exact)
+            return fused_groupnorm_stitch(csp, patches, scale, bias, G, exact=exact)
 
         def plain(exact=exact):   # the CPU path: partials, finalise, stitch
-            mean, rstd = ref_gn_finalize(ref_gn_partials(patches, 8),
+            mean, rstd = ref_gn_finalize(ref_gn_partials(patches, G),
                                          meta.patch_req_i32, meta.request_offset_i32,
                                          p, C, 1e-5, exact)
             return ref_groupnorm_stitch(patches, meta.neighbors_i32,
-                                        mean.repeat_interleave(C // 8, dim=-1),
-                                        rstd.repeat_interleave(C // 8, dim=-1),
+                                        mean.repeat_interleave(C // G, dim=-1),
+                                        rstd.repeat_interleave(C // G, dim=-1),
                                         scale, bias)
 
         got = whole()
-        want = gather_halo(patched_groupnorm(csp, patches, scale, bias, 8,
+        want = gather_halo(patched_groupnorm(csp, patches, scale, bias, G,
                                              exact=exact), meta.neighbors)
         torch.cuda.synchronize()
-        what = f"groupnorm_stitch level {level} p={p} C={C} {dtype} exact={exact}"
+        what = f"groupnorm_stitch level {level} p={p} C={C} G={G} {dtype} exact={exact}"
         err = max(max_err(got, want, TOL[dtype]["gn"], what),
                   max_err(got, plain(), TOL[dtype]["gn"], what + " (plain)"))
         ms = cuda_ms(whole)
@@ -383,7 +411,7 @@ def gn_rows(dev, gen, level: int, C: int, res: list, patch: int, dtype, modes) -
                    + meta.request_offset_i32.nbytes)
         # statistics: add, multiply, add per input element; normalise + affine: 4 per output
         bms, by = bound_ms(n_bytes, 3 * P * p * p * C + 4 * P * (p + 2) ** 2 * C, dtype)
-        rows.append(dict(level=level, P=P, p=p, C=C, dtype=str(dtype).split(".")[1],
+        rows.append(dict(level=level, P=P, p=p, C=C, G=G, dtype=str(dtype).split(".")[1],
                          exact=exact, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bms, bound_by=by, library_ms=None,
                          partials_ms=partials_ms, stitch_ms=stitch_ms,
@@ -393,7 +421,8 @@ def gn_rows(dev, gen, level: int, C: int, res: list, patch: int, dtype, modes) -
 
 def phase_kernels(dev) -> dict:
     gen = torch.Generator().manual_seed(0)
-    results = {"groupnorm_stitch": [], "patch_attention": [], "public_heads": []}
+    results = {"groupnorm_stitch": [], "patch_attention": [], "public_heads": [],
+               "domain_groupnorm_stitch": [], "domain_patch_attention": []}
     # GN-stitch on the chip's three-request CSP: level 0 (p=32) and level 1 (p=16)
     for level, C in GN_LEVELS:
         f = 2 ** level
@@ -419,26 +448,76 @@ def phase_kernels(dev) -> dict:
             results["public_heads"].append(
                 attention_row(dev, gen, 1, S, 16 if D == 72 else 8, D, dtype))
     attention_dims_sweep(dev, gen)
+    # the rest of what the TPU kernels take, off the main path: attention at
+    # other key lengths, wider heads and in fp16; GN-stitch past 512 groups and
+    # in fp16
+    for (B, S, Sk, H, D), dtype in itertools.product(DOMAIN_ATTENTION, DTYPES[:2]):
+        results["domain_patch_attention"].append(attention_row(dev, gen, B, S, H, D, dtype, Sk))
+    for B, S, H, D in FP16_ATTENTION:
+        results["domain_patch_attention"].append(
+            attention_row(dev, gen, B, S, H, D, torch.float16))
+    gn_cases = [(lvl, C, G, dtype) for (lvl, C, G), dtype in itertools.product(GN_DOMAIN,
+                                                                              DTYPES[:2])]
+    gn_cases += [(lvl, C, 8, torch.float16) for lvl, C in GN_LEVELS]
+    for level, C, G, dtype in gn_cases:
+        f = 2 ** level
+        for row in gn_rows(dev, gen, level, C, [(h // f, w // f) for h, w in CHIP_RES],
+                           32 // f, dtype, (True, False), G):
+            results["domain_groupnorm_stitch"].append(row)
+            log(f"[gn_stitch] {json.dumps(row)}")
+    gn_groups_sweep(dev, gen)
     return results
 
 
-def attention_row(dev, gen, B: int, S: int, H: int, D: int, dtype) -> dict:
-    """The attention kernel at one shape against ``ref_attention``, timed
-    beside the plain version, SDPA and its bound."""
+def gn_groups_sweep(dev, gen) -> None:
+    """GN-stitch past the stitch's 512 shared-memory groups (``GN_GROUPS``)
+    in the three dtypes and both statistics modes, on a two-request CSP of
+    8-sided patches, against the plain composite; the worst error per G."""
+    t0 = time.perf_counter()
+    for dtype in DTYPES:
+        worst = {}
+        for (C, G), exact in itertools.product(GN_GROUPS, (True, False)):
+            imgs = [torch.randn(h, h, C, generator=gen).to(dev, dtype) for h in (16, 24)]
+            csp, patches = split(imgs, patch=8)
+            scale, bias = torch.randn(2, C, generator=gen).to(dev).unbind(dim=0)
+            got = fused_groupnorm_stitch(csp, patches, scale, bias, G, exact=exact)
+            want = gather_halo(patched_groupnorm(csp, patches, scale, bias, G, exact=exact),
+                               csp_device(csp, dev).neighbors)
+            err = max_err(got, want, TOL[dtype]["gn"],
+                          f"groupnorm_stitch C={C} G={G} {dtype} exact={exact}")
+            worst[G] = max(worst.get(G, 0.0), err)
+        log(f"[gn_stitch groups] {str(dtype).split('.')[1]} (tol {TOL[dtype]['gn']:g}), "
+            f"C/G {[f'{C}/{G}' for C, G in GN_GROUPS]}, exact and per-patch: max abs err by G "
+            f"{ {g: float(f'{e:.3e}') for g, e in worst.items()} }")
+    log(f"[gn_stitch groups] {time.perf_counter() - t0:.1f} s")
+
+
+def attention_row(dev, gen, B: int, S: int, H: int, D: int, dtype,
+                  Sk: int | None = None) -> dict:
+    """The attention kernel at one shape (S queries; Sk keys, S when None)
+    against ``ref_attention``, timed beside the plain version, SDPA and its
+    bound."""
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    qkv = torch.randn(B, S, 3, H, D, generator=gen).to(dev, dtype)
-    q, k, v = qkv.unbind(dim=2)
+    if Sk is None:
+        qkv = torch.randn(B, S, 3, H, D, generator=gen).to(dev, dtype)
+        q, k, v = qkv.unbind(dim=2)
+    else:
+        q = torch.randn(B, S, H, D, generator=gen).to(dev, dtype)
+        k, v = torch.randn(B, Sk, 2, H, D, generator=gen).to(dev, dtype).unbind(dim=2)
+    Sk = k.shape[1]
     got = patch_attention(q, k, v)
     want = ref_attention(q, k, v)
     torch.cuda.synchronize()
-    err = max_err(got, want, TOL[dtype]["attn"], f"patch_attention S={S} D={D} {dtype}")
+    err = max_err(got, want, TOL[dtype]["attn"],
+                  f"patch_attention S={S} Sk={Sk} D={D} {dtype}")
     ms = cuda_ms(lambda: patch_attention(q, k, v))
     plain = cuda_ms(lambda: ref_attention(q, k, v), calls=2)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)))
-    bms, term = attention_bound(B, S, H, D, dtype)
-    row = dict(B=B, S=S, H=H, D=D, width=instance_width(D), dtype=str(dtype).split(".")[1],
-               n_split=split_kv(B, S, H, n_sm, block_q(dtype, D)),
+    bms, term = attention_bound(B, S, H, D, dtype, Sk)
+    row = dict(B=B, S=S, Sk=Sk, H=H, D=D, width=instance_width(min(D, SLICE_WIDTH)),
+               slices=column_slices(D), dtype=str(dtype).split(".")[1],
+               n_split=split_kv(B, S, H, n_sm, block_q(dtype, D), Sk, column_slices(D)),
                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                bound_by=term, library_ms=lib_ms)
     log(f"[attention] {json.dumps(row)}")
@@ -446,29 +525,34 @@ def attention_row(dev, gen, B: int, S: int, H: int, D: int, dtype) -> dict:
 
 
 def attention_dims_sweep(dev, gen) -> None:
-    """Every head dim from 1 to 256 in both dtypes against ``ref_attention``
-    at two small shapes (one split-KV), the worst error per instance width;
-    and a head dim past the widest instance raising on the card."""
+    """Every head dim from 1 to 512 in the three dtypes against
+    ``ref_attention`` at two small shapes (one split-KV), and D = 1024 once;
+    the worst error per instance width (past the widest: per count of
+    column slices); and D = 0 raising on the card."""
     t0 = time.perf_counter()
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in DTYPES:
         worst = {}
-        for D, (B, S, H) in itertools.product(range(1, MAX_HEAD_DIM + 1),
-                                              ((1, 100, 2), (2, 65, 1))):
+        cases = itertools.chain(
+            itertools.product(range(1, 2 * SLICE_WIDTH + 1), ((1, 100, 2), (2, 65, 1))),
+            [(4 * SLICE_WIDTH, (1, 100, 2))])
+        for D, (B, S, H) in cases:
             q, k, v = torch.randn(B, S, 3, H, D, generator=gen).to(dev, dtype).unbind(dim=2)
             got = patch_attention(q, k, v)
             err = max_err(got, ref_attention(q, k, v), TOL[dtype]["attn"],
                           f"patch_attention B={B} S={S} H={H} D={D} {dtype}")
-            worst[instance_width(D)] = max(worst.get(instance_width(D), 0.0), err)
-        log(f"[attention dims] D = 1..{MAX_HEAD_DIM} {str(dtype).split('.')[1]} (tol "
-            f"{TOL[dtype]['attn']:g}): max abs err by instance width "
+            w = instance_width(D) if D <= SLICE_WIDTH else f"{column_slices(D)}x{SLICE_WIDTH}"
+            worst[w] = max(worst.get(w, 0.0), err)
+        log(f"[attention dims] D = 1..{2 * SLICE_WIDTH} and {4 * SLICE_WIDTH} "
+            f"{str(dtype).split('.')[1]} (tol {TOL[dtype]['attn']:g}): max abs err by instance "
+            f"width (past {SLICE_WIDTH}: column slices x width) "
             f"{ {w: float(f'{e:.3e}') for w, e in worst.items()} }")
-    x = torch.zeros(1, 16, 2, MAX_HEAD_DIM + 1, device=dev)
+    x = torch.zeros(1, 16, 2, 0, device=dev)
     try:
         patch_attention(x, x, x)
     except ValueError as e:
-        log(f"[attention dims] D = {MAX_HEAD_DIM + 1} raises on the card: {e}")
+        log(f"[attention dims] D = 0 raises on the card: {e}")
     else:
-        raise RuntimeError(f"patch_attention took head dim {MAX_HEAD_DIM + 1}")
+        raise RuntimeError("patch_attention took head dim 0")
     log(f"[attention dims] {time.perf_counter() - t0:.1f} s")
 
 
@@ -2227,7 +2311,8 @@ def phase_heads(dev, smi: str) -> dict:
     return counts
 
 
-SHAPE_KEYS = ("level", "P", "p", "C", "B", "S", "H", "D", "dtype", "exact", "n_split")
+SHAPE_KEYS = ("level", "P", "p", "C", "G", "B", "S", "Sk", "H", "D", "dtype", "exact",
+              "n_split")
 
 
 def kernels_line(results: dict, main_launches: dict, fleet: dict, entry: dict,
@@ -2239,7 +2324,13 @@ def kernels_line(results: dict, main_launches: dict, fleet: dict, entry: dict,
     ``dtype_launches`` from each kernel-route run of phase 10,
     ``heads_launches`` from each kernel-route run of phase 11, for
     GroupNorm+stitch the fleet's new patch sides (``fleet_shapes``) and for
-    attention phase 2's rows at public head dims (``public_heads``)."""
+    attention phase 2's rows at public head dims (``public_heads``); for each,
+    phase 2's rows off the main path (``domain``: other key lengths, head
+    dims past 256, fp16, groups past 512) and the C entry points of its
+    library (``entry_points``)."""
+    keep = SHAPE_KEYS + ("width", "slices", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms")
+    prefixes = {"groupnorm_stitch": "ps_gn_", "patch_attention": "ps_patch_attention_"}
     out = []
     for name, (_, source, replaces) in KERNELS.items():
         rows = [r for r in results[name] if r["dtype"] == "float32"]
@@ -2255,18 +2346,19 @@ def kernels_line(results: dict, main_launches: dict, fleet: dict, entry: dict,
                                        for policy, counts in fleet["launches"].items()},
                     "entry_launches": {path: counts[name] for path, counts in entry.items()},
                     "dtype_launches": {run: counts[name] for run, counts in dtype.items()},
-                    "heads_launches": {run: counts[name] for run, counts in heads.items()}})
+                    "heads_launches": {run: counts[name] for run, counts in heads.items()},
+                    "entry_points": [f for f in build.SIGNATURES
+                                     if f.startswith(prefixes[name])],
+                    "domain": [{k: v for k, v in r.items() if k in keep}
+                               for r in results[f"domain_{name}"]]})
         if name == "groupnorm_stitch":
             out[-1]["fleet_shapes"] = [
                 {k: v for k, v in r.items()
                  if k in SHAPE_KEYS + ("max_abs_err", "ms", "bound_ms", "bound_by")}
                 for r in fleet["groupnorm_stitch"]]
         else:
-            out[-1]["public_heads"] = [
-                {k: v for k, v in r.items()
-                 if k in SHAPE_KEYS + ("width", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms")}
-                for r in results["public_heads"]]
+            out[-1]["public_heads"] = [{k: v for k, v in r.items() if k in keep}
+                                       for r in results["public_heads"]]
     return {"kernels": out}
 
 

@@ -206,7 +206,7 @@ CACHE_TIER = Scenario(
     arm_fns={"no_tier": lambda: _cachetier_arm("no_tier"),
              "tier": lambda: _cachetier_arm("tier")},
     win="fleet patch-cache tier + cache_affinity dispatch beats the best "
-        "no-tier policy on fleet SLO satisfaction")
+        "no-tier PR-4 policy on fleet SLO satisfaction")
 
 
 def cachetier_workload(seed: int = 0) -> List[Request]:

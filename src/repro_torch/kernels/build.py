@@ -31,12 +31,11 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # launcher name -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
-    "ps_gn_partials_f32": [_P] * 2 + [_I] * 4 + [_P],
-    "ps_gn_partials_bf16": [_P] * 2 + [_I] * 4 + [_P],
-    "ps_gn_stitch_f32": [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P],
-    "ps_gn_stitch_bf16": [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P],
-    "ps_patch_attention_f32": [_P] * 6 + [_I] * 5 + [_L] * 9 + [ctypes.c_float, _P],
-    "ps_patch_attention_bf16": [_P] * 6 + [_I] * 5 + [_L] * 9 + [ctypes.c_float, _P],
+    **{f"ps_gn_partials_{t}": [_P] * 2 + [_I] * 4 + [_P] for t in ("f32", "bf16", "f16")},
+    **{f"ps_gn_stitch_{t}": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P]
+       for t in ("f32", "bf16", "f16")},
+    **{f"ps_patch_attention_{t}": [_P] * 6 + [_I] * 6 + [_L] * 9 + [ctypes.c_float, _P]
+       for t in ("f32", "bf16", "f16")},
     "ps_patch_attention_block_q": [_I, _I, ctypes.POINTER(_I)],
 }
 

@@ -6,7 +6,9 @@ computed for it.
 - ``gn_partials``: (P, p, p, C) patches -> (P, G, 2) fp32 (sum x, sum x^2)
   per patch and channel group (kernel 1);
 - ``gn_stitch``: normalise and stitch the haloed tiles, the statistics
-  finalised from the partials in the kernel's prologue (kernel 2);
+  finalised from the partials in the kernel's prologue (kernel 2); past
+  ``SMEM_GROUPS`` groups a finalise kernel writes them to a (P, G, 2) buffer
+  that the stitch reads instead (two launches in this one call);
 - ``groupnorm_stitch``: the whole function, both kernels.
 
 The CSP metadata arguments are int32 tensors on the patches' device
@@ -23,9 +25,11 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_gn_finalize, ref_gn_partials, ref_groupnorm_stitch
 
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# the stitch kernel keeps 9 sets of (mean, rstd) per group in 48 KB of shared memory
-MAX_GROUPS = 512
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
+# groups whose 9 sets of (mean, rstd) the stitch kernel keeps in shared memory
+# (kSmemGroups in csrc/groupnorm_stitch.cu, which a test holds equal); past it
+# the statistics go through a (P, G, 2) buffer in device memory
+SMEM_GROUPS = 512
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -40,8 +44,7 @@ def _check_patches(patches: torch.Tensor, groups: int) -> None:
     _check(patches.dtype in _SUFFIX, f"unsupported dtype {patches.dtype}")
     _check(patches.is_contiguous(), "patches must be contiguous")
     C = patches.shape[-1]
-    _check(0 < groups <= MAX_GROUPS and C % groups == 0,
-           f"groups {groups} must divide C={C} and be at most {MAX_GROUPS}")
+    _check(0 < groups and C % groups == 0, f"groups {groups} must divide C={C}")
 
 
 def _launcher(kind: str, dtype: torch.dtype):
@@ -49,7 +52,7 @@ def _launcher(kind: str, dtype: torch.dtype):
 
 
 def gn_partials(patches: torch.Tensor, groups: int) -> torch.Tensor:
-    """(P, p, p, C) fp32/bf16 -> (P, G, 2) fp32 (sum x, sum x^2) per patch and
+    """(P, p, p, C) fp32/bf16/fp16 -> (P, G, 2) fp32 (sum x, sum x^2) per patch and
     channel group."""
     if patches.device.type == "cpu":
         return ref_gn_partials(patches, groups)
@@ -97,9 +100,12 @@ def gn_stitch(patches: torch.Tensor, partials: torch.Tensor, neighbors: torch.Te
                       device=patches.device)
     if P == 0:
         return out
+    stats = (torch.empty((P, G, 2), dtype=torch.float32, device=patches.device)
+             if G > SMEM_GROUPS else None)
     stream = torch.cuda.current_stream(patches.device).cuda_stream
     build.check(_launcher("stitch", patches.dtype)(
-        patches.data_ptr(), partials.data_ptr(), neighbors.data_ptr(), patch_req.data_ptr(),
+        patches.data_ptr(), partials.data_ptr(), None if stats is None else stats.data_ptr(),
+        neighbors.data_ptr(), patch_req.data_ptr(),
         request_offset.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
         P, p, C, G, halo, int(exact), eps, stream), "gn_stitch")
     gn_stitch.launches += 1

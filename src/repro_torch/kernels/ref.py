@@ -55,7 +55,8 @@ def ref_groupnorm_stitch(patches, neighbors, mean_c, rstd_c, scale, bias,
 
 
 def ref_attention(q, k, v, scale=None):
-    """q,k,v: (B, S, H, D) full bidirectional attention, fp32 softmax."""
+    """q (B, Sq, H, D), k and v (B, Sk, H, D): full bidirectional attention,
+    fp32 softmax."""
     D = q.shape[-1]
     sc = scale if scale is not None else D ** -0.5
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sc
@@ -64,12 +65,13 @@ def ref_attention(q, k, v, scale=None):
     return o.to(q.dtype)
 
 
-def key_ranges(S: int, n_split: int) -> list:
-    """The key range [start, stop) of each split as the attention kernel cuts
-    them: the T = ceil(S / BLOCK_K) key tiles shared out as evenly as whole
-    tiles allow, range i holding tiles [i*T // n, (i+1)*T // n)."""
-    tiles = -(-S // BLOCK_K)
-    return [(i * tiles // n_split * BLOCK_K, min(S, (i + 1) * tiles // n_split * BLOCK_K))
+def key_ranges(Sk: int, n_split: int) -> list:
+    """The key range [start, stop) of each split of ``Sk`` keys as the
+    attention kernel cuts them: the T = ceil(Sk / BLOCK_K) key tiles shared
+    out as evenly as whole tiles allow, range i holding tiles
+    [i*T // n, (i+1)*T // n)."""
+    tiles = -(-Sk // BLOCK_K)
+    return [(i * tiles // n_split * BLOCK_K, min(Sk, (i + 1) * tiles // n_split * BLOCK_K))
             for i in range(n_split)]
 
 
@@ -79,7 +81,7 @@ def ref_attention_split(q, k, v, n_split: int):
     sc = q.shape[-1] ** -0.5
     qf, kf, vf = q.float(), k.float(), v.float()
     parts = []
-    for start, stop in key_ranges(q.shape[1], n_split):
+    for start, stop in key_ranges(k.shape[1], n_split):
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, start:stop]) * sc
         m = s.amax(dim=-1, keepdim=True)
         p = torch.exp(s - m)
@@ -111,7 +113,7 @@ def split_matmul(a: torch.Tensor, b: torch.Tensor, bits: int, passes: int) -> to
 
 
 def emulated_attention(q, k, v, bits: int = 7, passes: int = 3):
-    """(B, S, H, D) attention with both products rounded as tensor-core
+    """(B, Sq, H, D) attention with both products rounded as tensor-core
     passes round them (the fp32 kernel: bf16, three passes; the bf16 kernel:
     one) and the softmax in fp32, as in the kernel: the scale times log2(e)
     applied to the scores, exp2, the row sum of the unrounded P."""

@@ -163,7 +163,9 @@ def _write_slot(t: torch.Tensor, slot: int, new: torch.Tensor) -> None:
 # Parameter init
 # ---------------------------------------------------------------------------
 
-def init_attention(cfg, b: ParamBuilder) -> None:
+def init_attention(cfg, b: ParamBuilder, cross: bool = False) -> None:
+    """``cross`` marks a cross-attention block, as in the reference; its
+    params are the same as self-attention's."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     b.make("wq", (d, h * hd), ("embed", "heads_x_dim"))
     b.make("wk", (d, kv * hd), ("embed", "kv_x_dim"))

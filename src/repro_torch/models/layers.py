@@ -283,10 +283,11 @@ def apply_norm(cfg, x: torch.Tensor, p: Params) -> torch.Tensor:
     return layernorm(x, p["scale"], p.get("bias"))
 
 
-def init_norm(cfg, b: ParamBuilder, path: str, dim: int) -> None:
-    b.make(f"{path}/scale", (dim,), (None,), init="ones")
+def init_norm(cfg, b: ParamBuilder, path: str, dim: int,
+              dim_axis: Optional[str] = None) -> None:
+    b.make(f"{path}/scale", (dim,), (dim_axis,), init="ones")
     if cfg.norm == "layernorm":
-        b.make(f"{path}/bias", (dim,), (None,), init="zeros")
+        b.make(f"{path}/bias", (dim,), (dim_axis,), init="zeros")
 
 
 # ---------------------------------------------------------------------------

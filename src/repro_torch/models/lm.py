@@ -69,7 +69,7 @@ def build_model(cfg, generator: Optional[torch.Generator], device=None
                 attn_mod.init_attention(cfg, sb.submodule("attn"))
                 if cfg.cross_attn:
                     init_norm(cfg, sb, "norm_cross", cfg.d_model)
-                    attn_mod.init_attention(cfg, sb.submodule("cross"))
+                    attn_mod.init_attention(cfg, sb.submodule("cross"), cross=True)
             elif mixer == "mla":
                 attn_mod.init_mla(cfg, sb.submodule("attn"))
             elif mixer == "mamba":

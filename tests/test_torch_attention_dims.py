@@ -1,7 +1,8 @@
 """Every head dim the TPU kernel takes, on the CPU: the JAX Pallas attention
 kernel (interpret mode) against the port's plain ``ref_attention`` at public
 models' head dims, the CUDA kernel's instance rule (which padded width runs a
-head dim, which rows are padded in a copy, which dims are refused), and two
+head dim, which rows are padded in a copy, which dims run in column slices
+and which are refused), and two
 tiny models whose heads are not the "-lite" widths through both packages.
 
 Tolerances: fp32 1e-4 and bf16 3e-2 (the reference's attention tolerances);
@@ -28,7 +29,7 @@ from repro_torch.convert import diffusion_params_from_numpy  # noqa: E402
 from repro_torch.core.patching import split as tsplit  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.patch_attention import (  # noqa: E402
-    INSTANCE_WIDTHS, MAX_HEAD_DIM, instance_width, row_width)
+    INSTANCE_WIDTHS, SLICE_WIDTH, column_slices, instance_width, row_width)
 from repro_torch.models import diffusion as tdm  # noqa: E402
 from repro_torch.models import sampler as tsam  # noqa: E402
 
@@ -60,9 +61,9 @@ def test_pallas_kernel_matches_plain_attention_at_public_head_dims(D, S, dtype):
 
 
 def test_every_head_dim_runs_in_the_narrowest_instance_that_holds_it():
-    assert list(INSTANCE_WIDTHS) == sorted(INSTANCE_WIDTHS) and MAX_HEAD_DIM == 256
+    assert list(INSTANCE_WIDTHS) == sorted(INSTANCE_WIDTHS) and SLICE_WIDTH == 256
     assert all(w % 16 == 0 for w in INSTANCE_WIDTHS)     # whole MMA k-steps
-    for D in range(1, MAX_HEAD_DIM + 1):
+    for D in range(1, SLICE_WIDTH + 1):
         w = instance_width(D)
         assert w in INSTANCE_WIDTHS and w >= D
         assert all(x < D for x in INSTANCE_WIDTHS if x < w), (D, w)
@@ -70,8 +71,25 @@ def test_every_head_dim_runs_in_the_narrowest_instance_that_holds_it():
 
 @pytest.mark.parametrize("D", [0, 257, 320])
 def test_head_dims_past_the_widest_instance_raise(D):
+    """No instance holds D = 0 or D > 256 whole, so ``instance_width``
+    raises. The wrapper refuses only D = 0: a wider D runs in two column
+    slices of the widest instance, each the attention of all of q and k on
+    its 256 columns of v, which together are plain attention."""
     with pytest.raises(ValueError, match=r"head dim \d+ not in 1\.\.256"):
         instance_width(D)
+    if D == 0:
+        with pytest.raises(ValueError, match="head dim 0 < 1"):
+            column_slices(D)
+        return
+    assert column_slices(D) == 2
+    rng = np.random.default_rng(D)
+    q = torch.from_numpy(rng.normal(size=(2, 33, 2, D)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(2, 40, 2, D)).astype(np.float32))
+            for _ in range(2))
+    slices = [ref.ref_attention(q, k, v[..., c:c + SLICE_WIDTH])
+              for c in range(0, D, SLICE_WIDTH)]
+    np.testing.assert_allclose(torch.cat(slices, dim=-1).numpy(),
+                               ref.ref_attention(q, k, v).numpy(), rtol=1e-6, atol=1e-6)
 
 
 def test_instance_widths_mirror_the_kernel_source():
@@ -90,7 +108,7 @@ def test_instance_widths_mirror_the_kernel_source():
 @pytest.mark.parametrize("dtype,chunk", [(torch.float32, 4), (torch.bfloat16, 8)])
 def test_unaligned_rows_pad_to_whole_16_byte_chunks_in_the_same_instance(dtype, chunk):
     es = torch.empty(0, dtype=dtype).element_size()
-    for D in range(1, MAX_HEAD_DIM + 1):
+    for D in range(1, SLICE_WIDTH + 1):
         Dk = row_width(D, es)
         assert Dk % chunk == 0 and D <= Dk < D + chunk
         assert (Dk == D) == (D * es % 16 == 0)

@@ -27,7 +27,7 @@ from repro_torch.core.csp_device import csp_device  # noqa: E402
 from repro_torch.kernels.groupnorm_stitch import (  # noqa: E402
     gn_partials, gn_stitch, groupnorm_stitch)
 from repro_torch.kernels.patch_attention import (  # noqa: E402
-    MAX_HEAD_DIM, instance_width, patch_attention)
+    SLICE_WIDTH, instance_width, patch_attention)
 
 GN_SWEEP = [  # tests/test_kernels.py::test_groupnorm_stitch_sweep
     ([(16, 16)], 8, 4, "float32"),
@@ -164,14 +164,14 @@ def test_launcher_signatures_match_sources():
                                                  "patch_attention.cu"}
     assert found == {name: len(args) for name, args in build.SIGNATURES.items()}
     assert {f"ps_gn_{kind}_{t}" for kind in ("partials", "stitch")
-            for t in ("f32", "bf16")} <= set(found)
+            for t in ("f32", "bf16", "f16")} <= set(found)
     # the attention launchers take the head dim at run time and pick the
     # instance themselves (instance_width): one launcher per dtype, not per D
     text = (build.CSRC / "patch_attention.cu").read_text()
     attn = {name: params for name, params in re.findall(
         r'extern "C" cudaError_t (ps_patch_attention\w*)\(([^)]*)\)', text)}
     assert set(attn) == {"ps_patch_attention_f32", "ps_patch_attention_bf16",
-                         "ps_patch_attention_block_q"}
+                         "ps_patch_attention_f16", "ps_patch_attention_block_q"}
     assert all(re.search(r"\bint D\b", params) for params in attn.values())
 
 
@@ -233,13 +233,16 @@ def test_wrappers_raise_off_the_cpu_instead_of_falling_back():
         gn_partials(x, 4)
     with pytest.raises(ValueError, match="unsupported device"):
         gn_stitch(x, part, nb, req, off, vec, vec)
-    # the device decides before the head dim: any D, a public one or one past
-    # the widest instance, raises the same off the CPU and off CUDA
-    for D in (8, 72, MAX_HEAD_DIM + 1):
+    # the device decides before the head dim and the key length: any D, a
+    # public one or one past the widest instance, and keys of another length
+    # than the queries, raise the same off the CPU and off CUDA
+    for D in (8, 72, SLICE_WIDTH + 1, 1024):
         q = torch.empty(1, 16, 2, D, device="meta")
-        with pytest.raises(ValueError, match="unsupported device"):
-            patch_attention(q, q, q)
-    with pytest.raises(ValueError, match=f"not in 1..{MAX_HEAD_DIM}"):
-        instance_width(MAX_HEAD_DIM + 1)
+        k = torch.empty(1, 77, 2, D, device="meta")
+        for args in ((q, q, q), (q, k, k)):
+            with pytest.raises(ValueError, match="unsupported device"):
+                patch_attention(*args)
+    with pytest.raises(ValueError, match=f"not in 1..{SLICE_WIDTH}"):
+        instance_width(SLICE_WIDTH + 1)
     assert groupnorm_stitch.launches == 0 and patch_attention.launches == 0
     assert gn_partials.launches == 0 and gn_stitch.launches == 0

@@ -6,7 +6,7 @@ JAX, so it runs where only the port is installed:
 
 Each case skips itself where ``torch.cuda.is_available()`` is false.
 Tolerances are the reference's: fp32 1e-4, bf16 2e-2 (GN-stitch) and 3e-2
-(attention)."""
+(attention); fp16 takes bf16's."""
 import numpy as np
 import pytest
 
@@ -20,7 +20,8 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.groupnorm_stitch import (  # noqa: E402
     gn_partials, gn_stitch, groupnorm_stitch)
 from repro_torch.kernels.patch_attention import (  # noqa: E402
-    INSTANCE_WIDTHS, MAX_HEAD_DIM, block_q, instance_width, patch_attention, split_kv)
+    INSTANCE_WIDTHS, SLICE_WIDTH, block_q, column_slices, instance_width, patch_attention,
+    split_kv)
 
 ATTN_SWEEP = [  # tests/test_kernels.py::test_patch_attention_sweep, plus a main-path S
     (2, 100, 4, 32, "float32"),
@@ -37,15 +38,30 @@ ATTN_SWEEP = [  # tests/test_kernels.py::test_patch_attention_sweep, plus a main
     (1, 4096, 4, 16, "float32"),
 ] + [  # public head dims, both dtypes, with split-KV (B=1, S=1024) and without (B=2, S=4096)
     (B, S, 4, D, dtype) for D in (12, 24, 40, 72, 80, 128, 160, 256)
-    for B, S in ((1, 1024), (2, 4096)) for dtype in ("float32", "bfloat16")]
+    for B, S in ((1, 1024), (2, 4096)) for dtype in ("float32", "bfloat16")] + [
+    # fp16 at the main path's D = 32 and at PixArt-α's 72 and SD 1.5's 40
+    (2, 1024, 4, 32, "float16"), (1, 1024, 4, 32, "float16"), (2, 4096, 4, 32, "float16"),
+    (1, 1024, 16, 72, "float16"), (1, 1024, 8, 40, "float16"), (1, 65, 2, 8, "float16")]
+# queries and keys of different lengths (B, Sq, Sk, H, D): PixArt-α's and SD
+# 1.5's text lengths (120, 77) under image queries, the reverse, one key, one
+# query, and keys of less than one tile
+ATTN_CROSS = [(1, 4096, 120, 16, 72), (1, 4096, 77, 8, 40), (1, 77, 4096, 8, 40),
+              (2, 64, 77, 2, 32), (1, 32, 120, 2, 16), (1, 100, 1, 2, 16), (1, 1, 300, 2, 64),
+              (2, 300, 33, 2, 160), (1, 200, 77, 2, 320)]
+# head dims past the widest instance (B, Sq, Sk, H, D): column slices, ragged
+# last slices, split-KV (B=1) and not
+ATTN_WIDE = [(1, 100, 100, 2, D) for D in (257, 300, 320, 512, 640, 1024)] + [
+    (2, 1024, 1024, 4, 512), (1, 4096, 4096, 2, 320), (1, 65, 130, 1, 1000)]
 # query rows per block of each instance: 4 warps x 16 rows x the m16 tiles a
 # warp owns (csrc/patch_attention.cu, Route::kM)
 INSTANCE_BLOCK_Q = {**{("float32", w): 128 if w <= 32 else 64 for w in INSTANCE_WIDTHS},
-                    **{("bfloat16", w): 128 if w <= 64 else 64 for w in INSTANCE_WIDTHS}}
+                    **{(t, w): 128 if w <= 64 else 64 for w in INSTANCE_WIDTHS
+                       for t in ("bfloat16", "float16")}}
+DTYPES = ["float32", "bfloat16", "float16"]
 
 
 def _tol(dtype, bf16_tol):
-    return bf16_tol if dtype == "bfloat16" else 1e-4
+    return 1e-4 if dtype == "float32" else bf16_tol
 
 
 def _need_cuda():
@@ -74,11 +90,18 @@ GN_CUDA_CASES = [  # res, C, G, patch
     ([(16, 16), (24, 24)], 12, 3, 8),                  # C % 4 != 0: the VEC=1 path
     ([(16, 16), (32, 32)], 8, 4, 8),                   # groups of 2 channels inside a vector
     ([(16, 16)], 2048, 32, 16),                        # more channel vectors than threads
+    # groups past the stitch's shared memory (512): per-channel statistics at
+    # SD 1.5's widths, two partials chunks of 768 groups, and a G of 2-channel
+    # groups whose C is not whole 16-byte vectors
+    ([(16, 16), (32, 32)], 640, 640, 8),
+    ([(16, 16), (24, 24)], 1280, 1280, 8),
+    ([(16, 16)], 2048, 1024, 8),
+    ([(16, 16), (24, 24)], 1026, 513, 8),
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("exact", [True, False])
 def test_groupnorm_stitch_kernel_matches_plain_on_cuda(dtype, exact):
     """The launch that chip_smoke.py's phase 2 repeats at full size: two
@@ -98,7 +121,7 @@ def test_groupnorm_stitch_kernel_matches_plain_on_cuda(dtype, exact):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("res,C,G,patch", GN_CUDA_CASES)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_gn_partials_kernel_matches_plain_on_cuda(res, C, G, patch, dtype):
     _need_cuda()
     _, tp, _, _ = _gn_case(res, C, dtype, patch)
@@ -111,7 +134,7 @@ def test_gn_partials_kernel_matches_plain_on_cuda(res, C, G, patch, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("res,C,G,patch", GN_CUDA_CASES)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("exact", [True, False])
 def test_groupnorm_stitch_shapes_match_plain_on_cuda(res, C, G, patch, dtype, exact):
     """The whole call against the plain composite (patched_groupnorm +
@@ -195,39 +218,68 @@ def test_patch_attention_rejects_misaligned_views_on_cuda(D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_patch_attention_refuses_head_dims_past_the_widest_instance_on_cuda(dtype):
+@pytest.mark.parametrize("B,Sq,Sk,H,D", ATTN_CROSS + ATTN_WIDE)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_patch_attention_takes_other_key_lengths_and_wide_heads_on_cuda(B, Sq, Sk, H, D, dtype):
+    """Keys of another length than the queries, and head dims past the
+    widest instance (in column slices), against the plain version."""
     _need_cuda()
-    x = torch.zeros(1, 16, 2, MAX_HEAD_DIM + 1, device="cuda", dtype=getattr(torch, dtype))
+    gen = torch.Generator().manual_seed(Sq * 7 + Sk + D)
+    t = getattr(torch, dtype)
+    q = torch.randn(B, Sq, H, D, generator=gen).to("cuda", t)
+    k, v = torch.randn(B, Sk, 2, H, D, generator=gen).to("cuda", t).unbind(dim=2)
     before = patch_attention.launches
-    with pytest.raises(ValueError, match=f"head dim {MAX_HEAD_DIM + 1} not in 1..{MAX_HEAD_DIM}"):
-        patch_attention(x, x, x)
-    assert patch_attention.launches == before
+    got = patch_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert patch_attention.launches == before + 1
+    assert got.shape == (B, Sq, H, D) and got.dtype == t and got.is_contiguous()
+    tol = _tol(dtype, 3e-2)
+    torch.testing.assert_close(got.float(), ref.ref_attention(q, k, v).float(),
+                               rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_every_instance_reports_its_block_rows_on_cuda(dtype):
-    """The rows the split rule counts: the library's per instance, the same
-    for every head dim the instance runs."""
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_patch_attention_takes_head_dims_past_the_widest_instance_on_cuda(dtype):
+    """Past the widest instance D runs in column slices; only D = 0 raises."""
     _need_cuda()
     t = getattr(torch, dtype)
-    for D in range(1, MAX_HEAD_DIM + 1):
-        assert block_q(t, D) == INSTANCE_BLOCK_Q[(dtype, instance_width(D))], D
+    before = patch_attention.launches
+    x = torch.zeros(1, 16, 2, 0, device="cuda", dtype=t)
+    with pytest.raises(ValueError, match="head dim 0 < 1"):
+        patch_attention(x, x, x)
+    assert patch_attention.launches == before
+    q, k, v = torch.randn(3, 1, 16, 2, SLICE_WIDTH + 1, device="cuda").to(t).unbind(dim=0)
+    got = patch_attention(q, k, v)
+    assert patch_attention.launches == before + 1 and column_slices(SLICE_WIDTH + 1) == 2
+    tol = _tol(dtype, 3e-2)
+    torch.testing.assert_close(got.float(), ref.ref_attention(q, k, v).float(),
+                               rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_every_instance_reports_its_block_rows_on_cuda(dtype):
+    """The rows the split rule counts: the library's per instance, the same
+    for every head dim the instance runs, the widest's past it."""
+    _need_cuda()
+    t = getattr(torch, dtype)
+    for D in range(1, 4 * SLICE_WIDTH + 1):
+        assert block_q(t, D) == INSTANCE_BLOCK_Q[(dtype, instance_width(min(D, SLICE_WIDTH)))], D
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_every_head_dim_matches_plain_on_cuda(dtype):
-    """D = 1..256 at a small shape that takes the split-KV path, unaligned
-    rows (padded in a copy) included."""
+    """D = 1..512 at a small shape that takes the split-KV path, unaligned
+    rows (padded in a copy) and column slices included."""
     _need_cuda()
     gen = torch.Generator().manual_seed(1)
     t = getattr(torch, dtype)
-    for D in range(1, MAX_HEAD_DIM + 1):
+    for D in range(1, 2 * SLICE_WIDTH + 1):
         q, k, v = torch.randn(1, 100, 3, 2, D, generator=gen).to("cuda", t).unbind(dim=2)
         assert split_kv(1, 100, 2, torch.cuda.get_device_properties(0).multi_processor_count,
-                        block_q(t, D)) == 2
+                        block_q(t, D), slices=column_slices(D)) == 2
         got = patch_attention(q, k, v)
         torch.cuda.synchronize()
         assert got.shape == (1, 100, 2, D) and got.is_contiguous()
