@@ -312,7 +312,7 @@ class Escalator:
             nxt = self._next_tier(tier)
             if nxt is not None and self._fits(req, nxt, end):
                 ev.completed.remove(req)
-                rep._retract_completion(req, end)
+                rep._retract_completion(req)
                 req.state = "waiting"
                 req.steps_done = 0
                 req.latent = None

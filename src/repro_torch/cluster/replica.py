@@ -355,18 +355,18 @@ class Replica:
                 tr.complete(r, self, ev.end)
         return ev
 
-    def _retract_completion(self, req: Request, end: float) -> None:
+    def _retract_completion(self, req: Request) -> None:
         """Reverse the completion the engine just recorded for ``req`` at
-        ``end`` (escalation: the cheap-tier output was rejected, so the
-        request is still in flight for every fleet metric). The engine
+        ``req.finish`` (escalation: the cheap-tier output was rejected, so
+        the request is still in flight for every fleet metric). The engine
         appended this completion's latency on this very tick, so removal
-        is exact — latency values for equal (end, arrival) are
+        is exact — latency values for equal (finish, arrival) are
         interchangeable."""
         m = self.engine.metrics
         m.completed -= 1
-        if end <= req.slo:
+        if req.finish <= req.slo:
             m.slo_met -= 1
-        lat = end - req.arrival
+        lat = req.finish - req.arrival
         for i in range(len(m.latencies) - 1, -1, -1):
             if m.latencies[i] == lat:
                 del m.latencies[i]

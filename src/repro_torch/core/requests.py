@@ -18,7 +18,9 @@ class Request:
     prompt: str = ""
     steps_done: int = 0
     state: str = "waiting"             # waiting | active | done | dropped
-    finish: Optional[float] = None     # completion time
+    #: completion time: on the real clock the caller's clock once the decoded
+    #: image is on the host, on the sim clock the end of the last step
+    finish: Optional[float] = None
     latent: object = None              # device array (H, W, C) between steps
     text: object = None                # prompt embeddings
     #: query difficulty in (0, 1] — the minimum model-tier quality that
@@ -29,6 +31,12 @@ class Request:
     #: least this quality (set by the cluster's confidence gate when a
     #: cheap-tier completion was rejected; 0.0 = any tier)
     min_quality: float = 0.0
+    #: the tick's ``now`` when Algorithm 1 admitted it (None while waiting
+    #: or if dropped before admission): arrival..admitted is its queue span,
+    #: admitted..finish its active span, all on the caller's clock
+    admitted: Optional[float] = None
+    #: its ``tick.decode`` span (``core.serving.Span``), once completed
+    decode_span: object = None
 
     @property
     def remaining_steps(self) -> int:

@@ -27,12 +27,24 @@ The engine is **steppable**: an external caller (a cluster layer) owns the
 clock and interleaves many engines by calling ``submit(req)`` and
 ``tick(now)`` — one engine iteration that returns a ``TickEvents`` record —
 while ``run()`` is a thin single-engine wrapper around the same loop.
+
+Each tick records its host phases as ``Span``s on ``TickEvents.spans``, in
+order: ``tick.schedule`` (Algorithm 1 and the drop and admit bookkeeping),
+``tick.prepare`` (the admitted requests' noise and text), ``tick.predict``
+(the step prediction, composition and locality features, the synchronise
+before the step), ``tick.split`` (bucket padding, ``split``, the step-index
+and text gathers), ``tick.step`` (``sampler_step``: the host's enqueue of the
+model step), ``tick.merge`` (``merge_by_request``, the latent writes),
+``tick.sync`` (the synchronise after the step) and ``tick.complete`` (the
+straggler rule and the completions), which holds one ``tick.decode`` per
+completed request (its ``rid``: postprocess, decode, copy to the host). An
+idle tick records ``tick.schedule`` only. The spans are on ``span_clock``.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +62,31 @@ from repro_torch.models import diffusion as dm
 from repro_torch.models import sampler as sampler_mod
 from repro_torch.models import vae as vae_mod
 from repro_torch.models.layers import tree_to
+
+
+#: The clock of the engine's spans: the wall clock in ns, which is the time
+#: base of torch.profiler's device trace, so that a host phase and the device
+#: activity under it line up. ``TickEvents.now`` and ``dt`` stay on the
+#: caller's clock.
+span_clock = time.time_ns
+
+
+class Span(NamedTuple):
+    """One host phase of a tick, from ``start_ns`` to ``end_ns`` on
+    ``span_clock``; ``rid`` is the request a per-request phase
+    (``tick.decode``) belongs to."""
+    name: str
+    start_ns: int
+    end_ns: int
+    rid: Optional[int] = None
+
+
+def _close(spans: List[Span], name: str, start_ns: int) -> int:
+    """Record the phase ``name``, begun at ``start_ns``, as ending now;
+    returns its end, where the next phase begins."""
+    end = span_clock()
+    spans.append(Span(name, start_ns, end))
+    return end
 
 
 @dataclass
@@ -108,6 +145,7 @@ class TickEvents:
     completed: List[Request] = field(default_factory=list)
     dt: float = 0.0                              # step duration (0 if idle)
     stepped: bool = False
+    spans: List[Span] = field(default_factory=list)   # host phases, in start order
 
     @property
     def end(self) -> float:
@@ -354,6 +392,8 @@ class PatchedServeEngine:
         The caller owns the clock and should advance it by ``events.dt``."""
         ev = TickEvents(now=now)
         m = self.metrics
+        spans = ev.spans
+        tick_ns = span_clock()
 
         admitted, dropped = self.scheduler.schedule(self.wait, self.active, now)
         for r in dropped:
@@ -364,11 +404,15 @@ class PatchedServeEngine:
         for r in admitted:
             self.wait.remove(r)
             r.state = "active"
-            self._prepare(r)
+            r.admitted = now
             self.active.append(r)
             ev.admitted.append(r)
+        t = _close(spans, "tick.schedule", tick_ns)
         if not self.active:
             return ev
+        for r in admitted:
+            self._prepare(r)
+        t = _close(spans, "tick.prepare", t)
 
         # one denoising step for the whole mixed-resolution batch
         step_pred = self._predict_step_latency(self.active)
@@ -394,10 +438,12 @@ class PatchedServeEngine:
             step_frac = float(np.mean([r.steps_done / max(r.total_steps, 1)
                                        for r in self.active]))
         self._sync()
+        _close(spans, "tick.predict", t)
         t0 = time.perf_counter()
-        savings = self._denoise_step(self.active)
+        savings = self._denoise_step(self.active, spans)
         self._sync()
         step_real = time.perf_counter() - t0
+        t = _close(spans, "tick.sync", spans[-1].end_ns)
         if savings:
             # measured tensor-path reuse: also feed the hit-model calibrator
             m.compute_savings.append(float(np.mean(savings)))
@@ -424,18 +470,25 @@ class PatchedServeEngine:
                     m.dropped += 1
                     ev.dropped.append(r)
 
-        # completions
+        # completions: on the real clock a request finishes on the caller's
+        # clock once its decode is on the host; the sim clock at the step end
+        complete_at = len(spans)
         for r in list(self.active):
             if r.steps_done >= r.total_steps:
                 self.active.remove(r)
+                d0 = span_clock()
                 self._postprocess(r)
+                r.decode_span = Span("tick.decode", d0, span_clock(), r.rid)
+                spans.append(r.decode_span)
                 r.state = "done"
-                r.finish = end
+                r.finish = (now + (r.decode_span.end_ns - tick_ns) * 1e-9
+                            if self.cfg.clock == "real" else end)
                 m.completed += 1
-                m.latencies.append(end - r.arrival)
-                if end <= r.slo:
+                m.latencies.append(r.finish - r.arrival)
+                if r.finish <= r.slo:
                     m.slo_met += 1
                 ev.completed.append(r)
+        spans.insert(complete_at, Span("tick.complete", t, span_clock()))
         return ev
 
     def drain(self, now: float = 0.0,
@@ -518,12 +571,17 @@ class PatchedServeEngine:
             pool[key] = r
         return r
 
-    def _denoise_step(self, active: List[Request]) -> List[float]:
+    def _denoise_step(self, active: List[Request],
+                      spans: Optional[List[Span]] = None) -> List[float]:
+        """One model step of ``active``; appends its ``tick.split``,
+        ``tick.step`` and ``tick.merge`` to ``spans`` (None: not kept)."""
         if self.cfg.clock == "sim" and self.cfg.sim_synthetic:
             # synthetic sim: no tensors exist; a step is pure accounting
             for r in active:
                 r.steps_done += 1
             return []
+        spans = [] if spans is None else spans
+        t = span_clock()
         # bucket-pad per resolution (the reference's bounded shape lattice)
         padded = list(active)
         for res, c in zip(self.resolutions, self._counts(active)):
@@ -543,14 +601,17 @@ class PatchedServeEngine:
         if self.cfg.use_cache and self.cfg.clock == "real":
             frac = float(np.mean([r.steps_done for r in active])) / total_steps
             hook, savings = self._block_hook(csp, frac)
+        t = _close(spans, "tick.split", t)
 
         # the model step runs on both clocks; the sim clock charges the
         # surrogate's time for it (the reference's sim clock skips it)
         new_patches = sampler_mod.sampler_step(
             self.mcfg, self.params, csp, patches, step_req, total_steps,
             text, block_hook=hook)
+        t = _close(spans, "tick.step", t)
         outs = merge_by_request(csp, new_patches)
         for r in active:                # dummies' outputs are discarded
             r.latent = outs[r.rid]
             r.steps_done += 1
+        _close(spans, "tick.merge", t)
         return savings

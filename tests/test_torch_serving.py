@@ -64,7 +64,11 @@ def test_sim_clock_metrics_identical(policy, qps, seed):
     assert teng.sa == jeng.sa
     jwl = j_workload(qps, 20.0, RES, 5.0, jeng.sa, steps=10, seed=seed)
     twl = t_workload(qps, 20.0, RES, 5.0, teng.sa, steps=10, seed=seed)
-    assert [dataclasses.astuple(r) for r in twl] == [dataclasses.astuple(r) for r in jwl]
+    # the reference's fields; the port's own (admission, decode span) start unset
+    names = [f.name for f in dataclasses.fields(JRequest)]
+    assert [[getattr(r, n) for n in names] for r in twl] == \
+        [list(dataclasses.astuple(r)) for r in jwl]
+    assert all(r.admitted is None and r.decode_span is None for r in twl)
     jm, tm = jeng.run(jwl), teng.run(twl)
     assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
     assert tm.completed + tm.dropped == len(twl) and tm.completed > 0
