@@ -14,7 +14,10 @@ Phases, each of which must pass:
    term (the kernels line keeps "bytes" or "operations"); attention at the
    UNet's D = 32, at SD3-lite's own D = 16 and at public models' head dims
    (D = 40, 72, 80, 128, 160 at B = 1, S = 1024 and 4096, H = 16 for D = 72
-   and 8 for the others, each row naming its kernel instance's width); every
+   and 8 for the others, each row naming its kernel instance's width); the
+   benchmark cells' fp32 shapes (``CELL_ATTENTION``), every call required on
+   the wgmma route (``patch_attention.launches_by_route``, also printed for
+   the main path's run and each model of phase 11); every
    D from 1 to 512 and D = 1024 in fp32, bf16 and fp16 at two small shapes,
    and D = 0 raising on the card. GN-stitch is the
    whole ``fused_groupnorm_stitch`` call (partial sums, then the stitch),
@@ -237,6 +240,15 @@ DOMAIN_ATTENTION = ((1, 4096, 120, 16, 72), (1, 4096, 77, 8, 40), (1, 77, 4096, 
                     (1, 1024, 1024, 8, 512), (1, 4096, 4096, 8, 512))
 # (B, S, H, D) in fp16: the UNet's D = 32 row, PixArt-α's and SD 1.5's level 0
 FP16_ATTENTION = ((2, 4096, 4, 32), (1, 4096, 16, 72), (1, 4096, 8, 40))
+# (B, S, Sk, H, D) of the benchmark cells' fp32 attention (gpubench): SD 1.5's
+# D = 40 / 80 / 160 at its levels' sequences, PixArt-α's D = 72, and the text
+# keys (77, 120) under image queries; Sk None for S keys
+CELL_ATTENTION = ([(1, S, None, 8, 40) for S in (4096, 9216, 16384)]
+                  + [(1, S, None, 8, 80) for S in (1024, 2304, 4096)]
+                  + [(1, S, None, 8, 160) for S in (256, 576, 1024)]
+                  + [(1, S, None, 16, 72) for S in (1024, 2304, 4096)]
+                  + [(1, 4096, 77, 8, 40), (1, 16384, 77, 8, 40), (1, 4096, 120, 16, 72),
+                     (1, 1024, 77, 8, 160)])
 # (level, C, G) of GN-stitch past the stitch's shared statistics: SD 1.5's
 # widest level with per-channel statistics, and with its own 32 groups
 GN_DOMAIN = ((2, 1280, 1280), (2, 1280, 32))
@@ -422,7 +434,7 @@ def gn_rows(dev, gen, level: int, C: int, res: list, patch: int, dtype, modes,
 def phase_kernels(dev) -> dict:
     gen = torch.Generator().manual_seed(0)
     results = {"groupnorm_stitch": [], "patch_attention": [], "public_heads": [],
-               "domain_groupnorm_stitch": [], "domain_patch_attention": []}
+               "cell_heads": [], "domain_groupnorm_stitch": [], "domain_patch_attention": []}
     # GN-stitch on the chip's three-request CSP: level 0 (p=32) and level 1 (p=16)
     for level, C in GN_LEVELS:
         f = 2 ** level
@@ -447,6 +459,14 @@ def phase_kernels(dev) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             results["public_heads"].append(
                 attention_row(dev, gen, 1, S, 16 if D == 72 else 8, D, dtype))
+    # the benchmark cells' fp32 shapes, every call on the wgmma route
+    before = dict(patch_attention.launches_by_route)
+    for B, S, Sk, H, D in CELL_ATTENTION:
+        results["cell_heads"].append(attention_row(dev, gen, B, S, H, D, torch.float32, Sk))
+    routes = {r: n - before[r] for r, n in patch_attention.launches_by_route.items()}
+    log(f"[attention cells] launches_by_route {routes}")
+    if routes["mma_sync"]:
+        raise RuntimeError(f"an fp32 call at the cells' shapes left the wgmma route: {routes}")
     attention_dims_sweep(dev, gen)
     # the rest of what the TPU kernels take, off the main path: attention at
     # other key lengths, wider heads and in fp16; GN-stitch past 512 groups and
@@ -561,6 +581,7 @@ def reset_launches() -> None:
         fn.launches = 0
     for fn in GN_KERNELS:
         fn.launches = 0
+    patch_attention.launches_by_route = dict.fromkeys(patch_attention.launches_by_route, 0)
 
 
 def check_gn_kernels() -> None:
@@ -699,7 +720,8 @@ def phase_serve(dev) -> tuple:
             f"p50 step ms={1e3 * float(np.median(m.step_latencies)):.3f} "
             f"span s={m.span:.3f} cache savings="
             f"{float(np.mean(m.compute_savings)) if m.compute_savings else 0.0:.3f} "
-            f"launches={counts}")
+            f"launches={counts} attention launches_by_route="
+            f"{patch_attention.launches_by_route}")
         if m.completed < 1 or m.completed + m.dropped != len(wl):
             raise RuntimeError(f"serve cache={use_cache}: {m.completed} completed, "
                                f"{m.dropped} dropped of {len(wl)}")
@@ -2255,6 +2277,8 @@ def heads_compare(dev, cfg, params, sides) -> dict:
         with attention_shapes() as seen:
             runs[use] = dtype_steps(dev, dataclasses.replace(cfg, use_kernels=use), params,
                                     sides, False)
+        if use:   # the fp32 models' every attention call on the wgmma route
+            routes = dict(patch_attention.launches_by_route)
         peak[use] = (torch.cuda.max_memory_allocated(dev) - before) / 2 ** 20
         shapes[use] = sorted(seen)
     (got, ms, n, _), (want, plain_ms, plain_n, _) = runs[True], runs[False]
@@ -2272,9 +2296,12 @@ def heads_compare(dev, cfg, params, sides) -> dict:
     if any(n[k] <= 0 for k in need) or sum(plain_n.values()) != 0 or shapes[False]:
         raise RuntimeError(f"{tag}: launches kernel route {n}, plain route {plain_n}, "
                            f"plain-route attention calls {shapes[False]}")
+    if routes["wgmma_3xbf16"] != n["patch_attention"]:
+        raise RuntimeError(f"{tag}: attention launches_by_route {routes}")
     widths = sorted({(D, w) for *_, D, w in shapes[True]})
     log(f"[heads] {tag}: max |kernels - plain| {err:.3e} = {err / scale:.3e} of max |latent| "
         f"{scale:.3e} (bar {HEADS_TOL:g}) PSNR {db:.2f} dB; launches {n}, plain {plain_n}; "
+        f"attention launches_by_route {routes}; "
         f"(head dim, instance width) {widths}; attention (B, S, H) "
         f"{sorted({(B, S, H) for B, S, H, *_ in shapes[True]})}; step ms kernels "
         f"{[round(x, 3) for x in ms]} plain {[round(x, 3) for x in plain_ms]}; peak device "
@@ -2359,6 +2386,8 @@ def kernels_line(results: dict, main_launches: dict, fleet: dict, entry: dict,
         else:
             out[-1]["public_heads"] = [{k: v for k, v in r.items() if k in keep}
                                        for r in results["public_heads"]]
+            out[-1]["cell_heads"] = [{k: v for k, v in r.items() if k in keep}
+                                     for r in results["cell_heads"]]
     return {"kernels": out}
 
 

@@ -3,7 +3,9 @@ the port of the TPU kernel ``src/repro/kernels/patch_attention.py``.
 
 A CPU tensor takes the plain version (``ref.ref_attention``); a CUDA tensor
 launches the kernel or raises. ``patch_attention.launches`` counts wrapper
-calls that launched, one per call, whether or not the split-KV combine ran.
+calls that launched, one per call, whether or not the split-KV combine ran;
+``patch_attention.launches_by_route`` counts the same calls by the kernel's
+route (``route``).
 """
 from __future__ import annotations
 
@@ -27,6 +29,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # wider D in column slices of the widest (column_slices)
 INSTANCE_WIDTHS = (16, 32, 48, 64, 80, 96, 128, 160, 192, 256)
 SLICE_WIDTH = INSTANCE_WIDTHS[-1]
+# the kernel's routes (launch_d in csrc/patch_attention.cu): fp32 below the
+# widest instance on wgmma in three bf16 passes; bf16, fp16 and every D past
+# the widest instance on mma.sync
+ROUTES = ("wgmma_3xbf16", "mma_sync")
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -50,6 +56,12 @@ def column_slices(D: int) -> int:
     columns of o. Raises ``ValueError`` for D < 1."""
     _check(D >= 1, f"head dim {D} < 1")
     return -(-D // SLICE_WIDTH)
+
+
+def route(dtype: torch.dtype, D: int) -> str:
+    """The kernel route that runs head dim ``D`` in ``dtype``: chosen by the
+    two alone."""
+    return ROUTES[0] if dtype == torch.float32 and D <= SLICE_WIDTH else ROUTES[1]
 
 
 def row_width(D: int, element_size: int) -> int:
@@ -139,7 +151,9 @@ def patch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
                    *v.stride()[:3], D ** -0.5, stream),
                 "patch_attention")
     patch_attention.launches += 1
+    patch_attention.launches_by_route[route(q.dtype, D)] += 1
     return out if Dk == D else out[..., :D].contiguous()
 
 
 patch_attention.launches = 0
+patch_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -18,7 +18,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.kernels.patch_attention import BLOCK_K, split_kv  # noqa: E402
+from repro_torch.kernels.patch_attention import (  # noqa: E402
+    BLOCK_K, ROUTES, SLICE_WIDTH, patch_attention, route, split_kv)
 
 H100_SMS = 132
 SOURCE = Path(ref.__file__).parent / "csrc" / "patch_attention.cu"
@@ -33,6 +34,62 @@ def test_block_k_mirrors_the_kernel_tile():
     """The split rule and key_ranges count keys in the kernel's own tiles."""
     m = re.search(r"constexpr int kBlockK = (\d+);", SOURCE.read_text())
     assert m and int(m.group(1)) == BLOCK_K
+
+
+def _fp32_block_q() -> int:
+    """Query rows per block of the fp32 wgmma route: 64 a warpgroup, kWgs
+    warpgroups (csrc/patch_attention.cu)."""
+    m = re.search(r"constexpr int kWgs = (\d+);", SOURCE.read_text())
+    assert m and re.search(r"constexpr int kWgRows = 64 \* kWgs;", SOURCE.read_text())
+    return 64 * int(m.group(1))
+
+
+def test_fp32_route_rows_are_whole_warpgroups():
+    """Two or more warpgroups of 64 rows: the rows the split rule counts for
+    every fp32 head dim up to the widest instance."""
+    assert _fp32_block_q() in (128, 192, 256)
+
+
+# the benchmark cells' attention groups at one request (B = 1): SD 1.5's H = 8
+# and PixArt-α's H = 16 at every level's sequence from 256 to 16,384 queries,
+# over their own tokens and over the text keys (77 and 120)
+CELL_GROUPS = [(S, H, Sk) for H in (8, 16) for S in (256, 576, 1024, 2304, 4096, 9216, 16384)
+               for Sk in (None, 77, 120)]
+
+
+@pytest.mark.parametrize("S,H,Sk", CELL_GROUPS)
+def test_split_rule_at_the_fp32_route_rows(S, H, Sk):
+    """At the wgmma route's rows per block every key range is whole tiles and
+    holds a key, the ranges cover the keys in order, and the blocks reach the
+    132 SMs unless every key tile already has a range of its own."""
+    block_q = _fp32_block_q()
+    keys = S if Sk is None else Sk
+    n = split_kv(1, S, H, H100_SMS, block_q, Sk)
+    tiles = -(-keys // BLOCK_K)
+    ranges = ref.key_ranges(keys, n)
+    assert 1 <= n <= tiles and len(ranges) == n
+    assert ranges[0][0] == 0 and ranges[-1][1] == keys
+    for (a, b), (c, _) in zip(ranges, ranges[1:] + [(keys, None)]):
+        assert a < b == c and a % BLOCK_K == 0
+    assert H * -(-S // block_q) * n >= H100_SMS or n == tiles
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.float32, 1, "wgmma_3xbf16"), (torch.float32, 40, "wgmma_3xbf16"),
+    (torch.float32, SLICE_WIDTH, "wgmma_3xbf16"), (torch.float32, SLICE_WIDTH + 1, "mma_sync"),
+    (torch.bfloat16, 40, "mma_sync"), (torch.float16, 72, "mma_sync"),
+    (torch.bfloat16, SLICE_WIDTH + 1, "mma_sync")])
+def test_route_is_chosen_by_dtype_and_head_dim(dtype, D, want):
+    """The route a call runs depends on its dtype and head dim alone."""
+    assert route(dtype, D) == want and want in ROUTES
+
+
+def test_cpu_calls_count_no_launch():
+    """A CPU tensor takes the plain version and counts on no route."""
+    before = dict(patch_attention.launches_by_route)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 17, 2, 8, seed=3))
+    patch_attention(q, k, v)
+    assert patch_attention.launches_by_route == before
 
 
 @pytest.mark.parametrize("S,n_split", [(17, 1), (65, 2), (1024, 3), (4096, 5)])

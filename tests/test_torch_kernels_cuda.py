@@ -20,8 +20,8 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.groupnorm_stitch import (  # noqa: E402
     gn_partials, gn_stitch, groupnorm_stitch)
 from repro_torch.kernels.patch_attention import (  # noqa: E402
-    INSTANCE_WIDTHS, SLICE_WIDTH, block_q, column_slices, instance_width, patch_attention,
-    split_kv)
+    INSTANCE_WIDTHS, ROUTES, SLICE_WIDTH, block_q, column_slices, instance_width,
+    patch_attention, route, split_kv)
 
 ATTN_SWEEP = [  # tests/test_kernels.py::test_patch_attention_sweep, plus a main-path S
     (2, 100, 4, 32, "float32"),
@@ -52,11 +52,22 @@ ATTN_CROSS = [(1, 4096, 120, 16, 72), (1, 4096, 77, 8, 40), (1, 77, 4096, 8, 40)
 # last slices, split-KV (B=1) and not
 ATTN_WIDE = [(1, 100, 100, 2, D) for D in (257, 300, 320, 512, 640, 1024)] + [
     (2, 1024, 1024, 4, 512), (1, 4096, 4096, 2, 320), (1, 65, 130, 1, 1000)]
-# query rows per block of each instance: 4 warps x 16 rows x the m16 tiles a
-# warp owns (csrc/patch_attention.cu, Route::kM)
-INSTANCE_BLOCK_Q = {**{("float32", w): 128 if w <= 32 else 64 for w in INSTANCE_WIDTHS},
+# query rows per block of each instance (csrc/patch_attention.cu): the fp32
+# route's two warpgroups of 64 rows (kWgRows); on the mma.sync route 4 warps x
+# 16 rows x the m16 tiles a warp owns (Route::kM), which past the widest
+# instance runs every dtype's column slices at the widest's rows
+INSTANCE_BLOCK_Q = {**{("float32", w): 128 for w in INSTANCE_WIDTHS},
                     **{(t, w): 128 if w <= 64 else 64 for w in INSTANCE_WIDTHS
                        for t in ("bfloat16", "float16")}}
+SLICE_BLOCK_Q = 64
+# the fp32 route at the benchmark cells' shapes (B, Sq, Sk, H, D), Sk None for
+# Sq keys: SD 1.5's D = 40 / 80 / 160 at its levels' sequences, PixArt-α's D =
+# 72, the text keys under image queries, a ragged S, split-KV groups (S = 65
+# and 256 over 2 heads, B = 3 over 4) and a batch
+WG_CELL_SHAPES = [(1, 16384, None, 8, 40), (1, 9216, None, 8, 40), (1, 4096, None, 8, 80),
+                  (1, 1024, None, 8, 160), (1, 4096, None, 16, 72), (1, 2304, None, 16, 72),
+                  (1, 4096, 77, 8, 40), (1, 4096, 120, 16, 72), (1, 65, None, 2, 40),
+                  (1, 256, None, 2, 72), (3, 1024, None, 4, 80)]
 DTYPES = ["float32", "bfloat16", "float16"]
 
 
@@ -265,7 +276,9 @@ def test_every_instance_reports_its_block_rows_on_cuda(dtype):
     _need_cuda()
     t = getattr(torch, dtype)
     for D in range(1, 4 * SLICE_WIDTH + 1):
-        assert block_q(t, D) == INSTANCE_BLOCK_Q[(dtype, instance_width(min(D, SLICE_WIDTH)))], D
+        want = (INSTANCE_BLOCK_Q[(dtype, instance_width(D))] if D <= SLICE_WIDTH
+                else SLICE_BLOCK_Q)
+        assert block_q(t, D) == want, D
 
 
 @pytest.mark.cuda
@@ -286,3 +299,55 @@ def test_every_head_dim_matches_plain_on_cuda(dtype):
         tol = _tol(dtype, 3e-2)
         torch.testing.assert_close(got.float(), ref.ref_attention(q, k, v).float(),
                                    rtol=tol, atol=tol, msg=lambda m: f"D={D}: {m}")
+
+
+def _per_head(fn, q, k, v):
+    """``fn`` over one head at a time, so that the (Sq, Sk) scores of the
+    largest shapes are made one head's at a time."""
+    return torch.cat([fn(q[:, :, h:h + 1], k[:, :, h:h + 1], v[:, :, h:h + 1])
+                      for h in range(q.shape[2])], dim=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,D", WG_CELL_SHAPES)
+def test_fp32_route_matches_its_emulation_at_the_cells_shapes_on_cuda(B, Sq, Sk, H, D):
+    """The wgmma route against ``ref.emulated_attention`` (its own 3xbf16
+    rounding) and plain attention, fp32 1e-4, each call counted on it."""
+    _need_cuda()
+    gen = torch.Generator().manual_seed(Sq + D)
+    if Sk is None:    # strided views of one projection, as the models make them
+        q, k, v = torch.randn(B, Sq, 3, H, D, generator=gen).cuda().unbind(dim=2)
+    else:
+        q = torch.randn(B, Sq, H, D, generator=gen).cuda()
+        k, v = torch.randn(B, Sk, 2, H, D, generator=gen).cuda().unbind(dim=2)
+    before = dict(patch_attention.launches_by_route)
+    got = patch_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert route(torch.float32, D) == "wgmma_3xbf16"
+    assert patch_attention.launches_by_route["wgmma_3xbf16"] == before["wgmma_3xbf16"] + 1
+    assert patch_attention.launches_by_route["mma_sync"] == before["mma_sync"]
+    for want in (_per_head(ref.emulated_attention, q, k, v), _per_head(ref.ref_attention, q, k, v)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [("float32", 40), ("float32", 256), ("float32", 257),
+                                     ("float32", 13), ("bfloat16", 40), ("bfloat16", 512),
+                                     ("float16", 72)])
+def test_launches_by_route_counts_each_call_on_its_route_on_cuda(dtype, D):
+    """fp32 up to the widest instance runs the wgmma route, bf16, fp16 and
+    any D past it the mma.sync route; each call counts once, on its route."""
+    _need_cuda()
+    t = getattr(torch, dtype)
+    q, k, v = torch.randn(3, 1, 100, 2, D, generator=torch.Generator().manual_seed(D)).to(
+        "cuda", t).unbind(dim=0)
+    before = dict(patch_attention.launches_by_route)
+    got = patch_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = route(t, D)
+    assert want == ("wgmma_3xbf16" if dtype == "float32" and D <= SLICE_WIDTH else "mma_sync")
+    assert {r: patch_attention.launches_by_route[r] - before[r] for r in ROUTES} == {
+        r: int(r == want) for r in ROUTES}
+    tol = _tol(dtype, 3e-2)
+    torch.testing.assert_close(got.float(), ref.ref_attention(q, k, v).float(),
+                               rtol=tol, atol=tol)
