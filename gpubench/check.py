@@ -70,9 +70,10 @@ def reference_readings(cfg: dict, traffic: dict, seed: int, arrivals, picks: Lis
     ins = inputs.request_inputs(cfg, [a.res for a in arrivals], seed, device)
     lat_err = dec_err = 0.0
     for i in picks:
-        z_ref = ref.sample(cfg, weights, ins[i]["latent"], ins[i]["text"], traffic["steps"])
+        cond = inputs.conditioning(ins[i])
+        z_ref = ref.sample(cfg, weights, ins[i]["latent"], cond, traffic["steps"])
         if tf32:
-            z = ref.sample(cfg, weights, ins[i]["latent"], ins[i]["text"], traffic["steps"], tf32=True)
+            z = ref.sample(cfg, weights, ins[i]["latent"], cond, traffic["steps"], tf32=True)
             img = ref.vae_decode(vae, z_ref, tf32=True)
             z_dec = z_ref
         else:

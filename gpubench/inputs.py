@@ -1,6 +1,6 @@
 """What a run hands both the program and the reference, made from its seed on
 the card in a few large calls: the weights, and each request's initial
-noise latent and text embedding."""
+noise latent and its conditioning (the rows its model kind names)."""
 from __future__ import annotations
 
 from typing import Dict, List, Sequence, Tuple
@@ -8,6 +8,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from gpubench.reference import kind
 from gpubench.reference.params import Spec, model_specs, vae_specs
 
 # one stream of draws per purpose, from the run's seed
@@ -60,15 +61,24 @@ def vae_weights(cfg: dict, seed: int, device) -> dict:
 def request_inputs(cfg: dict, resolutions: Sequence[Tuple[int, int]], seed: int,
                    device) -> List[Dict[str, torch.Tensor]]:
     """Per request i at latent side ``resolutions[i]``: ``latent`` (H, W, C0)
-    standard normal noise and ``text`` (n_text, d_text) normal x 0.3, the
-    scale of the program's prompt-embedding stand-in. Two draws in all."""
+    standard normal noise, then each of the kind's ``conditioning`` rows
+    ``(name, shape, scale)`` under its name, normal x scale. One draw for
+    the latents and one a row, in the rows' order."""
+    rows = kind(cfg).conditioning(cfg)
     gen = generator(seed, "requests", device)
-    c0, nt, dt = cfg["latent_channels"], cfg["n_text"], cfg["d_text"]
+    c0, n = cfg["latent_channels"], len(resolutions)
     sizes = [h * w * c0 for h, w in resolutions]
     lat = torch.randn(sum(sizes), generator=gen, device=device)
-    txt = torch.randn(len(resolutions), nt, dt, generator=gen, device=device).mul_(0.3)
+    cond = {name: torch.randn(n, *shape, generator=gen, device=device).mul_(scale)
+            for name, shape, scale in rows}
     out, off = [], 0
     for i, ((h, w), size) in enumerate(zip(resolutions, sizes)):
-        out.append({"latent": lat[off:off + size].view(h, w, c0), "text": txt[i]})
+        out.append({"latent": lat[off:off + size].view(h, w, c0),
+                    **{name: c[i] for name, c in cond.items()}})
         off += size
     return out
+
+
+def conditioning(req: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A request's inputs beyond its latent, by name."""
+    return {k: v for k, v in req.items() if k != "latent"}

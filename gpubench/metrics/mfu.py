@@ -3,6 +3,7 @@ requests only, each a whole image) over the steps' time at the tensor
 cores' peak, in per cent."""
 import importlib
 
+from gpubench.reference import kind
 from gpubench.work.peaks import TENSOR_FLOPS
 
 
@@ -11,6 +12,7 @@ def read(run):
     secs = sum(t.dt for t in ticks)
     if not secs:
         return None
+    kind(run.cfg)                   # raises unless both of the kind's files are there
     work = importlib.import_module(f"gpubench.work.{run.cfg['kind']}")
     per = {}
     total = 0.0

@@ -1,11 +1,13 @@
-"""Plain PyTorch reference of one request served alone, as a whole image.
+"""Plain PyTorch reference of one request served alone, as a whole image:
+the parts that the model kinds share, and ``sample``, which hands a request
+to its configuration's kind (``reference/<kind>.py``).
 
-The denoiser (a UNet with ResBlocks and transformer blocks, or a DiT over
-1x1 latent-pixel tokens with one shared adaLN), the samplers (DDIM with
-eta = 0 for the UNet, rectified-flow Euler for the DiT) and the VAE decoder
-(two 3x3 convolutions and an x8 pixel shuffle), written from the block
-structure that the configuration files describe, on NCHW images with plain
-``torch`` operations: no patches, no halos, no kernels, no batching.
+Shared: the transformer block (GroupNorm, self-attention, cross-attention to
+the text, feed-forward), the ResBlock, GroupNorm, the timestep embedding and
+its MLP, and the VAE decoder (two 3x3 convolutions and an x8 pixel shuffle),
+written from the block structure that the configuration files describe, on
+NCHW images with plain ``torch`` operations: no patches, no halos, no
+kernels, no batching.
 
 ``tf32=True`` computes every matrix product and convolution on operands
 rounded to TensorFloat-32 (10 mantissa bits, to nearest even) with float32
@@ -17,10 +19,12 @@ from __future__ import annotations
 
 import contextlib
 import math
+from typing import Dict
 
-import numpy as np
 import torch
 import torch.nn.functional as F
+
+from gpubench.reference import kind
 
 GN_EPS = 1e-5
 # rows of attention scores held at once: (heads, rows, keys) fp32 under 1 GiB
@@ -80,12 +84,12 @@ def group_norm(x: torch.Tensor, gp: dict, groups: int) -> torch.Tensor:
     return F.group_norm(x.float(), groups, gp["scale"].float(), gp["bias"].float(), GN_EPS)
 
 
-def _tokens(x: torch.Tensor) -> torch.Tensor:
+def tokens(x: torch.Tensor) -> torch.Tensor:
     """(1, C, H, W) -> (H*W, C)."""
     return x[0].flatten(1).t()
 
 
-def _image(t: torch.Tensor, H: int, W: int) -> torch.Tensor:
+def image(t: torch.Tensor, H: int, W: int) -> torch.Tensor:
     """(H*W, C) -> (1, C, H, W)."""
     return t.t().reshape(1, -1, H, W)
 
@@ -113,19 +117,19 @@ def attn_block(ar: Arith, cfg: dict, p: dict, x: torch.Tensor, kv_text) -> torch
     (keys, values), projected once per request."""
     _, C, H, W = x.shape
     n = cfg["n_heads"]
-    h = _tokens(group_norm(x, p["gn"], cfg["groups"]))               # (S, C)
+    h = tokens(group_norm(x, p["gn"], cfg["groups"]))                # (S, C)
     q, k, v = (_heads(ar.mm(h, p[w]), n) for w in ("wq", "wk", "wv"))
     h = h + ar.mm(attention(ar, q, k, v).transpose(0, 1).reshape(-1, C), p["wo"])
     tk, tv = kv_text
     xq = _heads(ar.mm(h, p["xq"]), n)
     h = h + ar.mm(attention(ar, xq, _heads(tk, n), _heads(tv, n)).transpose(0, 1)
                   .reshape(-1, C), p["xo"])
-    hn = _tokens(group_norm(_image(h, H, W), p["gn_ff"], cfg["groups"]))
+    hn = tokens(group_norm(image(h, H, W), p["gn_ff"], cfg["groups"]))
     ff = ar.mm(F.gelu(ar.mm(hn, p["ff1"]), approximate="tanh"), p["ff2"])
-    return _image(h + ff, H, W)
+    return image(h + ff, H, W)
 
 
-def _text_kv(ar: Arith, p: dict, text: torch.Tensor):
+def text_kv(ar: Arith, p: dict, text: torch.Tensor):
     return ar.mm(text, p["xk"]), ar.mm(text, p["xv"])
 
 
@@ -139,97 +143,18 @@ def res_block(ar: Arith, cfg: dict, p: dict, x: torch.Tensor, temb: torch.Tensor
     return x + h
 
 
-def _temb(ar: Arith, cfg: dict, P: dict, t: torch.Tensor) -> torch.Tensor:
+def temb_mlp(ar: Arith, cfg: dict, P: dict, t: torch.Tensor) -> torch.Tensor:
     e = timestep_embedding(t.reshape(1), cfg["t_dim"])
     e = F.silu(ar.mm(e, P["temb_w1"]) + P["temb_b1"])
     return ar.mm(e, P["temb_w2"]) + P["temb_b2"]                     # (1, t_dim)
 
 
-def unet(ar: Arith, cfg: dict, P: dict, x: torch.Tensor, t: torch.Tensor,
-         text: torch.Tensor) -> torch.Tensor:
-    """eps of one image x (1, C0, H, W) at timestep t."""
-    temb = _temb(ar, cfg, P, t)
-    levels, attn_levels = cfg["levels"], cfg["attn_levels"]
-
-    def attn(name, h):
-        return attn_block(ar, cfg, P[name], h, _text_kv(ar, P[name], text))
-
-    x = ar.conv(x, P["stem"]["w"], P["stem"]["b"])
-    skips = []
-    for lvl in range(levels):
-        for i in range(cfg["blocks_per_level"]):
-            x = res_block(ar, cfg, P[f"down{lvl}_res{i}"], x, temb)
-            if lvl in attn_levels:
-                x = attn(f"down{lvl}_attn{i}", x)
-        skips.append(x)
-        if lvl + 1 < levels:
-            # stride-2 SAME: the even side pads only right and bottom
-            x = ar.conv(F.pad(x, (0, 1, 0, 1)), P[f"down{lvl}_ds"]["w"],
-                        P[f"down{lvl}_ds"]["b"], stride=2, padding=0)
-    x = res_block(ar, cfg, P["mid_res1"], x, temb)
-    x = attn("mid_attn", x)
-    x = res_block(ar, cfg, P["mid_res2"], x, temb)
-    for lvl in reversed(range(levels)):
-        if lvl + 1 < levels:
-            x = F.interpolate(x, scale_factor=2, mode="nearest")
-            x = ar.conv(x, P[f"up{lvl}_us"]["w"], P[f"up{lvl}_us"]["b"])
-        for i in range(cfg["blocks_per_level"]):
-            if i == 0:
-                x = torch.cat([x, skips[lvl]], dim=1)
-            x = res_block(ar, cfg, P[f"up{lvl}_res{i}"], x, temb)
-            if lvl in attn_levels:
-                x = attn(f"up{lvl}_attn{i}", x)
-    h = F.silu(group_norm(x, P["out_norm"], cfg["groups"]))
-    return ar.conv(h, P["out_conv"]["w"], P["out_conv"]["b"])
-
-
-def dit(ar: Arith, cfg: dict, P: dict, x: torch.Tensor, t: torch.Tensor,
-        text: torch.Tensor) -> torch.Tensor:
-    """Velocity of one image x (1, C0, H, W) at time t (in [0, 1000])."""
-    _, _, H, W = x.shape
-    temb = _temb(ar, cfg, P, t)
-    sc, sh, gate = torch.chunk(ar.mm(F.silu(temb), P["adaln_w"]) + P["adaln_b"], 3, dim=-1)
-    h = ar.mm(_tokens(x), P["tok_in"]) + P["tok_in_b"]               # (S, width)
-    for i in range(cfg["dit_depth"]):
-        p = P[f"blk{i}"]
-        y = _tokens(attn_block(ar, cfg, p, _image(h * (1 + sc) + sh, H, W),
-                               _text_kv(ar, p, text)))
-        h = h + gate * (y - h)
-    h = _tokens(group_norm(_image(h, H, W), P["out_norm"], cfg["groups"]))
-    return _image(ar.mm(h, P["tok_out"]) + P["tok_out_b"], H, W)
-
-
-def ddim_schedule(steps: int, T: int = 1000):
-    """(timesteps, alpha-bar at them as float32): linear betas 1e-4..0.02."""
-    betas = np.linspace(1e-4, 0.02, T, dtype=np.float64)
-    ab = np.cumprod(1.0 - betas)
-    ts = np.linspace(T - 1, 0, steps).round().astype(np.int64)
-    return ts, ab[ts].astype(np.float32)
-
-
-def sample(cfg: dict, P: dict, latent: torch.Tensor, text: torch.Tensor, steps: int,
-           tf32: bool = False) -> torch.Tensor:
+def sample(cfg: dict, P: dict, latent: torch.Tensor, cond: Dict[str, torch.Tensor],
+           steps: int, tf32: bool = False) -> torch.Tensor:
     """The request's final latent (H, W, C0) from its initial noise latent
-    (H, W, C0) and text embedding (n_text, d_text), after ``steps`` steps."""
-    ar = Arith(tf32)
-    dev = latent.device
-    x = latent.float().permute(2, 0, 1)[None]
-    with precision(tf32), torch.no_grad():
-        if cfg["kind"] == "dit":
-            for k in range(steps):
-                t_cur = 1.0 - torch.tensor(k, dtype=torch.float32, device=dev) / steps
-                t_next = 1.0 - torch.tensor(k + 1, dtype=torch.float32, device=dev) / steps
-                x = x + (t_next - t_cur) * dit(ar, cfg, P, x, t_cur * 1000.0, text)
-        else:
-            ts, ab = ddim_schedule(steps)
-            for k in range(steps):
-                a = torch.tensor(ab[k], device=dev)
-                a_next = torch.tensor(ab[k + 1] if k + 1 < steps else 1.0,
-                                      dtype=torch.float32, device=dev)
-                eps = unet(ar, cfg, P, x, torch.tensor(float(ts[k]), device=dev), text)
-                x0 = (x - torch.sqrt(1 - a) * eps) / torch.sqrt(a)
-                x = torch.sqrt(a_next) * x0 + torch.sqrt(1 - a_next) * eps
-    return x[0].permute(1, 2, 0)
+    (H, W, C0) and its conditioning tensors by name, after ``steps`` steps of
+    its configuration's kind."""
+    return kind(cfg).sample(cfg, P, latent, cond, steps, tf32)
 
 
 def vae_decode(vae: dict, z: torch.Tensor, tf32: bool = False) -> torch.Tensor:

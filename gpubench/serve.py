@@ -112,10 +112,12 @@ def build_engine(cfg: dict, traffic: dict, seed: int, device):
                               vae_params=inputs.vae_weights(cfg, seed, device))
 
 
-def make_request(a: Arrival, due: float, steps: int, latent: torch.Tensor, text: torch.Tensor):
+def make_request(a: Arrival, due: float, steps: int, ins: Dict[str, torch.Tensor]):
+    """The program's ``Request`` of arrival ``a``: a copy of its latent, and
+    each of its conditioning tensors as the keyword of the same name."""
     from repro_torch.core.requests import Request
     return Request(rid=a.index, resolution=a.res, arrival=due, slo=due + a.budget,
-                   total_steps=steps, latent=latent.clone(), text=text)
+                   total_steps=steps, latent=ins["latent"].clone(), **inputs.conditioning(ins))
 
 
 def set_up(cfg: dict, traffic: dict, seconds: float, seed: int, device) -> dict:
@@ -163,7 +165,7 @@ def drive(engine, arrivals: List[Arrival], reqs: List[dict], run: Run,
             a = pending[nxt]
             nxt += 1
             due = t_open + a.due
-            req = make_request(a, due, steps, reqs[a.index]["latent"], reqs[a.index]["text"])
+            req = make_request(a, due, steps, reqs[a.index])
             engine.submit(req)
             s = Served(a, due, time.perf_counter(), req)
             run.served.append(s)

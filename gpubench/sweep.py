@@ -45,8 +45,7 @@ def base(entry, repeats: int, device="cuda") -> None:
     for i, r in enumerate(res):
         times = []
         for rep in range(repeats + 1):
-            req = serve.make_request(arrivals[i], 0.0, traffic["steps"], ins[i]["latent"],
-                                     ins[i]["text"])
+            req = serve.make_request(arrivals[i], 0.0, traffic["steps"], ins[i])
             serve.sync(device)
             t0 = time.perf_counter()
             engine.submit(req)

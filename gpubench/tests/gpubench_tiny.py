@@ -1,12 +1,15 @@
-"""Tiny configurations and cells for the benchmark's CPU tests."""
+"""The model kinds found in the tree, tiny configurations (each kind's
+``TINY``) and cells for the benchmark's CPU tests."""
+from pathlib import Path
 
-TINY_UNET = dict(name="tiny-unet", kind="unet", latent_channels=4, width=16, levels=2,
-                 blocks_per_level=1, attn_levels=[0, 1], n_heads=2, groups=4, d_text=8, n_text=4,
-                 t_dim=16, exact_stats=True, use_kernels=True, dtype="float32", vae_width=8,
-                 precision="float32, TF32 off")
-TINY_DIT = dict(name="tiny-dit", kind="dit", latent_channels=4, width=24, dit_depth=2, n_heads=3,
-                groups=4, d_text=12, n_text=5, t_dim=16, exact_stats=True, use_kernels=True,
-                dtype="float32", vae_width=8, precision="float32, TF32 off")
+# both are imported from here by the tests of the harness and of the engine's spans
+from gpubench.reference.dit import TINY as TINY_DIT  # noqa: F401
+from gpubench.reference.unet import TINY as TINY_UNET
+
+HERE = Path(__file__).resolve().parents[1]
+# a kind is a name with both gpubench/reference/<kind>.py and gpubench/work/<kind>.py
+KINDS = sorted(p.stem for p in (HERE / "reference").glob("*.py")
+               if not p.stem.startswith("_") and (HERE / "work" / p.name).is_file())
 
 
 def tiny_traffic(**kw) -> dict:

@@ -37,7 +37,8 @@ def test_no_harness_module_imports_jax_or_the_jax_package(path):
 def test_the_reference_imports_nothing_of_the_program(path):
     names = imported(path)
     assert not names & (FORBIDDEN | {"repro_torch"})
-    assert names <= {"__future__", "contextlib", "math", "typing", "numpy", "torch", "gpubench"}
+    assert names <= {"__future__", "contextlib", "importlib", "math", "re", "types", "typing",
+                     "numpy", "torch", "gpubench"}
     assert all(m.startswith("gpubench.reference") for m in _gpubench_modules(path))
 
 

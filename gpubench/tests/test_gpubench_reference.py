@@ -8,13 +8,15 @@ import pytest
 import torch
 
 from gpubench import inputs, serve, traffic as tm
-from gpubench.reference import diffusion as ref
+from gpubench.reference import diffusion as ref, kind
 from gpubench.reference.params import model_specs, vae_specs
-from gpubench_tiny import TINY_DIT, TINY_UNET, tiny_traffic
+from gpubench_tiny import KINDS, tiny_traffic
 from repro_torch.models.diffusion import init_diffusion
 from repro_torch.models.vae import init_vae
 
 CONFIGS = sorted((Path(__file__).resolve().parents[1] / "configs").glob("*.json"))
+# each kind's tiny configuration: a kind's module brings its own cases
+TINY = [kind({"kind": k}).TINY for k in KINDS]
 
 
 def flat(tree, prefix=""):
@@ -27,8 +29,8 @@ def flat(tree, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("cfg", [json.loads(p.read_text()) for p in CONFIGS] + [TINY_UNET, TINY_DIT],
-                         ids=[p.stem for p in CONFIGS] + ["tiny-unet", "tiny-dit"])
+@pytest.mark.parametrize("cfg", [json.loads(p.read_text()) for p in CONFIGS] + TINY,
+                         ids=[p.stem for p in CONFIGS] + [c["name"] for c in TINY])
 def test_specs_are_the_programs_trees(cfg):
     port = flat(init_diffusion(serve.diffusion_config(cfg), None, device="meta"))
     assert {p: s for p, s, _, _ in model_specs(cfg)} == port
@@ -36,7 +38,7 @@ def test_specs_are_the_programs_trees(cfg):
     assert {p: s for p, s, _, _ in vae_specs(cfg)} == vae
 
 
-@pytest.mark.parametrize("cfg", [TINY_UNET, TINY_DIT], ids=["unet", "dit"])
+@pytest.mark.parametrize("cfg", TINY, ids=KINDS)
 def test_specs_hold_the_programs_initial_scales(cfg):
     """Drawn leaf by leaf in the specs' order from the generator the
     program's initialiser takes, every leaf equals the program's bit for bit."""
@@ -53,7 +55,7 @@ def test_specs_hold_the_programs_initial_scales(cfg):
         assert torch.equal(leaf, want), path
 
 
-@pytest.mark.parametrize("cfg", [TINY_UNET, TINY_DIT], ids=["unet", "dit"])
+@pytest.mark.parametrize("cfg", TINY, ids=KINDS)
 def test_reference_alone_equals_the_program_batched(cfg):
     """Four requests of three sizes, submitted two ticks apart so that they
     batch at different steps, served by the engine; each against the
@@ -63,8 +65,7 @@ def test_reference_alone_equals_the_program_batched(cfg):
     res = [(32, 32), (16, 16), (24, 24), (32, 32)]
     arr = [tm.Arrival(i, 0.0, r, 1e9, "window") for i, r in enumerate(res)]
     ins = inputs.request_inputs(cfg, res, 11, "cpu")
-    reqs = [serve.make_request(a, 0.0, t["steps"], ins[i]["latent"], ins[i]["text"])
-            for i, a in enumerate(arr)]
+    reqs = [serve.make_request(a, 0.0, t["steps"], ins[i]) for i, a in enumerate(arr)]
     n = 0
     while n < len(reqs) or engine.has_work:
         if n < len(reqs):
@@ -76,7 +77,7 @@ def test_reference_alone_equals_the_program_batched(cfg):
     W = inputs.model_weights(cfg, 11, "cpu")
     vae = inputs.vae_weights(cfg, 11, "cpu")
     for i, r in enumerate(reqs):
-        z = ref.sample(cfg, W, ins[i]["latent"], ins[i]["text"], t["steps"])
+        z = ref.sample(cfg, W, ins[i]["latent"], inputs.conditioning(ins[i]), t["steps"])
         assert float((r.latent - z).abs().max() / z.abs().max()) < 1e-5
         img = ref.vae_decode(vae, r.latent)
         np.testing.assert_allclose(engine.outputs[i], img.numpy(), atol=1e-4, rtol=0)

@@ -76,8 +76,7 @@ def test_deadlines_do_not_move_with_the_engines_calibration():
     ins = inputs.request_inputs(TINY_UNET, [a.res for a in arr], 1, "cpu")
 
     def deadlines():
-        return [serve.make_request(a, 100.0 + a.due, t["steps"], ins[a.index]["latent"],
-                                   ins[a.index]["text"]).slo for a in arr]
+        return [serve.make_request(a, 100.0 + a.due, t["steps"], ins[a.index]).slo for a in arr]
 
     before = deadlines()
     engine.calibrate(steps_per_probe=1, total_steps_hint=t["steps"])

@@ -4,7 +4,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from gpubench import inputs
-from gpubench.reference import diffusion as ref
+from gpubench.reference import diffusion as ref, kind
 from gpubench.work import dit, groupnorm_stitch, patch_attention, unet
 from gpubench_tiny import TINY_DIT, TINY_UNET
 
@@ -25,9 +25,8 @@ def counted(fn) -> int:
 def test_model_flops_equal_the_counter_on_one_reference_step(cfg, work, H, W):
     P = inputs.model_weights(cfg, 3, "cpu")
     x = torch.randn(1, cfg["latent_channels"], H, W)
-    text = torch.randn(cfg["n_text"], cfg["d_text"])
-    fwd = ref.unet if cfg["kind"] == "unet" else ref.dit
-    n = counted(lambda: fwd(ref.Arith(), cfg, P, x, torch.tensor(500.0), text))
+    cond = {name: torch.randn(shape) for name, shape, _ in kind(cfg).conditioning(cfg)}
+    n = counted(lambda: kind(cfg).forward(ref.Arith(), cfg, P, x, torch.tensor(500.0), **cond))
     assert work.flops(cfg, H, W) == n
 
 
