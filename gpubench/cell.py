@@ -66,7 +66,7 @@ def run_cell(entry: dict, seed: int, seconds: float, trace: bool, device,
         tracer = Tracer(time.perf_counter() + lead_in_s(traffic) + seconds - stretch, stretch)
     with torch.no_grad():
         serve.drive(engine, parts["arrivals"], parts["inputs"], run, tracer)
-    run.profile = tracer.summary() if tracer is not None else None
+    run.profile = tracer.summary([t.events for t in run.ticks]) if tracer is not None else None
     for s in run.served:
         s.image = engine.outputs.get(s.arrival.index)
     peak = torch.cuda.max_memory_allocated() if cuda else 0
@@ -77,6 +77,10 @@ def run_cell(entry: dict, seed: int, seconds: float, trace: bool, device,
         f"{sum(s.dropped is not None for s in counted)}, in flight at the end "
         f"{sum(s.done is None and s.dropped is None for s in counted)}, met "
         f"{sum(s.met for s in counted)}; steps {len(run.window_ticks)} in the window")
+    log("window misses (due s, latent side, how): " + ", ".join(
+        f"({s.arrival.due:.2f}, {s.arrival.res[0]}, "
+        f"{'dropped' if s.dropped is not None else 'late' if s.done is not None else 'unfinished'})"
+        for s in counted if not s.met))
     late = np.asarray(run.lateness) * 1e3
     if late.size:
         log(f"generator lateness ms: median {np.median(late):.3f} p99 "
@@ -108,6 +112,10 @@ def run_cell(entry: dict, seed: int, seconds: float, trace: bool, device,
             f"active {p['active_s']:.4f} s, {len(p['attention_calls'])} attention and "
             f"{len(p['gn_calls'])} GN-stitch calls; starting the profiler held the loop "
             f"{p['start_s']:.3f} s, collecting its events after the drain took {p['stop_s']:.3f} s")
+        recorded, launched = p["call_counts"]["attention_calls"]
+        log(f"attention calls recorded {recorded}, wrapper launches {launched}"
+            + ("" if recorded == launched else ": they differ, so patch_attention_roofline "
+               "is left out"))
     log(f"run phases s: set-up {setup_s:.1f} (profiler first start {prime_s[0]:.1f}, "
         f"stop {prime_s[1]:.1f}), lead-in {lead_in_s(traffic):.1f}, window {seconds:g}, "
         f"drain {run.t_end - run.t_open - seconds:.1f}, trace collection "

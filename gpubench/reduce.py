@@ -23,8 +23,14 @@ def ratio_p90(run):
 
 
 def roofline_share(run, calls_key: str, work_module: str, kernels) -> float | None:
+    """Per cent: the calls' summed bound over the kernels' device seconds;
+    None where the recorder's count of calls differs from the launches the
+    wrapper counted, since the bound would then leave calls out."""
     prof = run.profile
     if not prof or not prof[calls_key]:
+        return None
+    recorded, launched = prof.get("call_counts", {}).get(calls_key, (0, 0))
+    if recorded != launched:
         return None
     secs = sum(prof["kernel_s"].get(k, 0.0) for k in kernels)
     if secs <= 0:

@@ -6,10 +6,10 @@ The reference module gives ``specs(cfg)`` (the denoiser's parameter rows),
 ``conditioning(cfg)`` (the per-request inputs beyond the latent, as ordered
 ``(name, shape, scale)`` rows), ``sample(cfg, P, latent, cond, steps,
 tf32=False)`` (the request's final latent), ``TINY`` (a tiny CPU
-configuration) and ``forward(ar, cfg, P, x, t, **cond)`` (one denoiser
-evaluation, whose FLOPs a test counts); the work module gives ``flops(cfg, H,
-W)``. A configuration names its kind under ``"kind"``; nothing else in the
-harness knows the kinds."""
+configuration whose ``"kind"`` is the kind's name) and ``forward(ar, cfg, P,
+x, t, **cond)`` (one denoiser evaluation, whose FLOPs a test counts); the
+work module gives ``flops(cfg, H, W)``. A configuration names its kind
+under ``"kind"``; nothing else in the harness knows the kinds."""
 from __future__ import annotations
 
 import importlib

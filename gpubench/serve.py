@@ -56,6 +56,7 @@ class TickRec:
     dt: float                       # the engine's own step time (0 when idle)
     pred: float                     # the engine's prediction for what it stepped
     stepped: List[Served]           # real requests advanced one step
+    events: object                  # the tick's TickEvents: its spans and counters
 
 
 @dataclass
@@ -190,7 +191,7 @@ def drive(engine, arrivals: List[Arrival], reqs: List[dict], run: Run,
         t1 = time.perf_counter()
         stepped = [live[i] for i, n in before.items() if live[i].request.steps_done > n]
         pred = engine.scheduler.predict([s.request for s in stepped]) if stepped else 0.0
-        run.ticks.append(TickRec(t0, t1, ev.dt, pred, stepped))
+        run.ticks.append(TickRec(t0, t1, ev.dt, pred, stepped, ev))
         if tracer is not None:
             tracer.note_tick(bool(stepped), bool(engine.active))
         for r in ev.completed:

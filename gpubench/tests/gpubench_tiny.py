@@ -2,6 +2,7 @@
 ``TINY``) and cells for the benchmark's CPU tests."""
 from pathlib import Path
 
+from gpubench.reference import kind
 # both are imported from here by the tests of the harness and of the engine's spans
 from gpubench.reference.dit import TINY as TINY_DIT  # noqa: F401
 from gpubench.reference.unet import TINY as TINY_UNET
@@ -10,6 +11,8 @@ HERE = Path(__file__).resolve().parents[1]
 # a kind is a name with both gpubench/reference/<kind>.py and gpubench/work/<kind>.py
 KINDS = sorted(p.stem for p in (HERE / "reference").glob("*.py")
                if not p.stem.startswith("_") and (HERE / "work" / p.name).is_file())
+# each kind's tiny configuration, in the order of KINDS: a kind brings its own cases
+KIND_TINY = [kind({"kind": k}).TINY for k in KINDS]
 
 
 def tiny_traffic(**kw) -> dict:

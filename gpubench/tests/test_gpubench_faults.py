@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from gpubench import cell, check, manifest, traffic as tm
-from gpubench_tiny import TINY_DIT, TINY_UNET, tiny_entry
+from gpubench_tiny import KIND_TINY, KINDS, TINY_UNET, tiny_entry
 from repro_torch.core import serving
 from repro_torch.models import sampler, vae
 
@@ -21,7 +21,7 @@ def run(entry, seed=2 ** 31 + 9):
     return cell.run_cell(entry, seed, 1.5, False, "cpu", time.perf_counter())
 
 
-@pytest.mark.parametrize("cfg", [TINY_UNET, TINY_DIT], ids=["unet", "dit"])
+@pytest.mark.parametrize("cfg", KIND_TINY, ids=KINDS)
 def test_a_sound_run_is_correct(cfg):
     r = run(tiny_entry(cfg))
     assert r["correct"], r["checks"]
@@ -84,7 +84,7 @@ def cell_limits(kind: str) -> dict:
     return out
 
 
-@pytest.mark.parametrize("cfg", [TINY_UNET, TINY_DIT], ids=["unet", "dit"])
+@pytest.mark.parametrize("cfg", KIND_TINY, ids=KINDS)
 @pytest.mark.parametrize("seed", [1, 2, 3])
 def test_the_control_fails_the_limits_of_every_cell_of_its_kind(cfg, seed):
     """The reference in TF32 put in the program's place, on the requests a

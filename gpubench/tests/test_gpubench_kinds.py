@@ -3,12 +3,14 @@
 The draws of the kinds that exist are pinned by digests taken on the commit
 before the kinds became plug-ins (float32 on an x86-64 CPU; the same with 1,
 2 or 4 threads): the parameter rows, the weights, the request inputs, the
-reference's final latent and the control's readings, bit for bit. A kind
-that no file defines fails before any weight is drawn; a kind injected under
-a new name, with a second conditioning row, reaches every place that draws,
-submits or samples; and no other harness module knows a kind's name."""
+reference's final latent and the control's readings, bit for bit. Every
+kind found in the tree gives the contract's names; a kind that no file
+defines fails before any weight is drawn; a kind injected under a new name,
+with a second conditioning row, reaches every place that draws, submits or
+samples; and no other harness module knows a kind's name."""
 import ast
 import hashlib
+import importlib
 import importlib.machinery
 import json
 import sys
@@ -119,17 +121,34 @@ def test_control_readings_are_the_parents():
 def test_an_unknown_kind_fails_before_any_weight_is_drawn(monkeypatch):
     """A configuration with the UNet's fields under a kind no file defines:
     the dispatcher's error, naming both files, not UNet weights."""
-    cfg = dict(TINY_UNET, kind="sd3")
+    cfg = dict(TINY_UNET, kind="no_such_kind")
+    where = r"reference/no_such_kind\.py and gpubench/work/no_such_kind\.py"
     monkeypatch.setattr(inputs, "draw_tree", lambda *a, **kw: pytest.fail("weights drawn"))
     for call in (lambda: model_specs(cfg), lambda: inputs.model_weights(cfg, 0, "cpu"),
                  lambda: inputs.request_inputs(cfg, RES, 0, "cpu"),
                  lambda: ref.sample(cfg, {}, torch.zeros(16, 16, 4), {}, 1)):
-        with pytest.raises(LookupError, match=r"reference/sd3\.py and gpubench/work/sd3\.py"):
+        with pytest.raises(LookupError, match=where):
             call()
     for name in ("diffusion", "params", "peaks", "patch_attention", "__init__", "../unet"):
         with pytest.raises(LookupError):
             kind({"kind": name})
-    assert KINDS == ["dit", "unet"]
+
+
+def test_the_kinds_found_hold_every_configurations_kind():
+    configs = [json.loads(p.read_text()) for p in sorted((HERE / "configs").glob("*.json"))]
+    assert {"dit", "unet"} <= set(KINDS)
+    assert {c["kind"] for c in configs} <= set(KINDS)
+
+
+@pytest.mark.parametrize("name", KINDS)
+def test_each_kind_gives_every_name_of_the_contract(name):
+    """Whatever kinds the tree holds: each module gives the kind contract's
+    names, and its tiny configuration is of its own kind."""
+    mod = kind({"kind": name})
+    for attr in ("specs", "conditioning", "sample", "forward", "TINY"):
+        assert hasattr(mod, attr), (name, attr)
+    assert callable(importlib.import_module(f"gpubench.work.{name}").flops)
+    assert mod.TINY["kind"] == name
 
 
 def _module(name: str, **attrs) -> types.ModuleType:

@@ -1,5 +1,6 @@
 """The conditioned-Poisson generator and deadlines that come from the traffic
 file alone."""
+import hashlib
 import json
 from collections import Counter
 from pathlib import Path
@@ -11,6 +12,19 @@ from gpubench import inputs, serve, traffic as tm
 from gpubench_tiny import TINY_UNET, tiny_traffic
 
 TRAFFIC = sorted((Path(__file__).resolve().parents[1] / "traffic").glob("*.json"))
+# sha256 of each file's schedule at 51 s, as the generator drew it at commit 1f39a83
+PARENT_SCHEDULES = {
+    "pixart-mixed-overload": "4c767d3d58c4a625d788f9c27dcdaca220c40cb5e47881099a4264cdb40ba042",
+    "pixart-mixed-steady": "40e9899f8afbaeaea847b938abac8eccf7f60622059bf94ce0c1655dde425299",
+    "sd15-512-steady": "fae105bb5ab38de9128d34b073c468b5f395636431249f007cb4e3cd74a99534",
+    "sd15-mixed-overload": "b9077e3916895e23c81f6d66f896a581f0a3dc8f1d302bc80bc934e6ee93dadc",
+    "sd15-mixed-steady": "225e1f163e6d2f708f67cf78611b5cb8e25f5892f5c407018857ee2e112295e0",
+}
+
+
+def schedule_digest(arr) -> str:
+    rows = [[a.index, a.due.hex(), list(a.res), a.budget.hex(), a.phase] for a in arr]
+    return hashlib.sha256(json.dumps(rows).encode()).hexdigest()
 
 
 @pytest.mark.parametrize("path", TRAFFIC, ids=lambda p: p.stem)
@@ -34,6 +48,12 @@ def test_each_phase_holds_exactly_its_count_balanced_and_sorted(path, arrival_se
     assert [a.due for a in arr] == sorted(a.due for a in arr)
     assert [a.index for a in arr] == list(range(len(arr)))
     assert sum(a.counted for a in arr) == round(t["rate"] * seconds)
+
+
+@pytest.mark.parametrize("name", PARENT_SCHEDULES)
+def test_each_files_schedule_is_the_parents(name):
+    t = json.loads((TRAFFIC[0].parent / f"{name}.json").read_text())
+    assert schedule_digest(tm.schedule(t, 51.0)) == PARENT_SCHEDULES[name]
 
 
 def test_every_run_serves_the_files_schedule_and_its_own_inputs():

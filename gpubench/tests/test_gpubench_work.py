@@ -1,12 +1,14 @@
 """The work functions against torch's own FLOP counter on the reference."""
+import importlib
+
 import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from gpubench import inputs
 from gpubench.reference import diffusion as ref, kind
-from gpubench.work import dit, groupnorm_stitch, patch_attention, unet
-from gpubench_tiny import TINY_DIT, TINY_UNET
+from gpubench.work import groupnorm_stitch, patch_attention
+from gpubench_tiny import KIND_TINY, KINDS, TINY_UNET
 
 SHAPES = [(16, 16), (24, 32), (32, 32)]
 
@@ -17,12 +19,12 @@ def counted(fn) -> int:
     return fc.get_total_flops()
 
 
-@pytest.mark.parametrize("cfg,work", [(TINY_UNET, unet), (TINY_DIT, dit),
-                                      (dict(TINY_UNET, levels=3, blocks_per_level=2,
-                                            attn_levels=[1, 2]), unet)],
-                         ids=["unet", "dit", "unet-3-levels"])
+@pytest.mark.parametrize("cfg", KIND_TINY + [dict(TINY_UNET, levels=3, blocks_per_level=2,
+                                                  attn_levels=[1, 2])],
+                         ids=KINDS + ["unet-3-levels"])
 @pytest.mark.parametrize("H,W", SHAPES)
-def test_model_flops_equal_the_counter_on_one_reference_step(cfg, work, H, W):
+def test_model_flops_equal_the_counter_on_one_reference_step(cfg, H, W):
+    work = importlib.import_module(f"gpubench.work.{cfg['kind']}")
     P = inputs.model_weights(cfg, 3, "cpu")
     x = torch.randn(1, cfg["latent_channels"], H, W)
     cond = {name: torch.randn(shape) for name, shape, _ in kind(cfg).conditioning(cfg)}

@@ -2,8 +2,18 @@
 device activity only, over a few seconds inside the window that start and
 end between engine ticks (each of which ends in a device synchronise), with
 the benchmark's own spans around its calls into the engine (host wall
-clock, the profiler's time base) and a record of the shape of every call
-into the two CUDA kernels' entry points.
+clock, the profiler's time base), the program's own spans of each tick
+(``TickEvents.spans``, on the same clock) and a record of the shape of
+every call into the two CUDA kernels' entry points.
+
+The shapes are recorded by swapping
+``repro_torch.models.diffusion.grouped_attention_kernel`` and
+``fused_groupnorm_stitch`` for recorders, so an attention that reaches the
+kernel by another name is not seen. The attention recorder checks itself:
+its count of calls over the stretch against the change in the wrapper's own
+counter (``repro_torch.kernels.patch_attention.patch_attention.launches``);
+where the two differ, ``patch_attention_roofline`` is left out rather than
+read from part of the calls.
 
 Starting the profiler the first time and collecting its events each hold
 the host for seconds, so set-up starts and stops it once (``prime``), and
@@ -20,7 +30,7 @@ from __future__ import annotations
 import contextlib
 import re
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -76,6 +86,12 @@ def complement(xs, lo: float, hi: float) -> List[Tuple[float, float]]:
     return [(a, b) for a, b in out if b > a]
 
 
+def _attention_wrapper():
+    """The program's attention wrapper, whose ``launches`` counts its launches."""
+    from repro_torch.kernels.patch_attention import patch_attention
+    return patch_attention
+
+
 def _activities() -> list:
     return [torch.profiler.ProfilerActivity.CUDA if torch.cuda.is_available()
             else torch.profiler.ProfilerActivity.CPU]
@@ -94,6 +110,7 @@ class Tracer:
         self.tick_flags: List[Tuple[bool, bool]] = []   # (stepped, still active after)
         self._patched: Dict[str, object] = {}
         self.spans: List[Tuple[float, float, str]] = []   # wall-clock seconds
+        self.launches = [0, 0]     # the attention wrapper's counter at the stretch's ends
 
     @staticmethod
     def prime() -> Tuple[float, float]:
@@ -151,6 +168,7 @@ class Tracer:
 
         self._patched = {"grouped_attention_kernel": attn, "fused_groupnorm_stitch": gn}
         diffusion.grouped_attention_kernel, diffusion.fused_groupnorm_stitch = rec_attn, rec_gn
+        self.launches[0] = _attention_wrapper().launches
         self.prof = torch.profiler.profile(activities=_activities())
         self.prof.__enter__()
         self.t_start_pc = time.perf_counter()
@@ -162,6 +180,7 @@ class Tracer:
             torch.cuda.synchronize()
         self.t_stop_pc = time.perf_counter()
         self.t_stop_wall = time.time_ns() * 1e-9
+        self.launches[1] = _attention_wrapper().launches
         from repro_torch.models import diffusion
         for name, fn in self._patched.items():
             setattr(diffusion, name, fn)
@@ -181,9 +200,11 @@ class Tracer:
         self.prof = None
         self.done = True
 
-    def summary(self) -> Optional[dict]:
+    def summary(self, tick_events: Iterable = ()) -> Optional[dict]:
         """Kernel seconds by name, the kernels' call shapes, busy and idle
-        time, and the breakdown; None if the stretch never started."""
+        time, and the breakdown, whose idle gaps are named by the innermost
+        program span of ``tick_events`` (the run's ``TickEvents``) open at
+        each; None if the stretch never started."""
         if not self.done:
             return None
         gpu = []
@@ -206,17 +227,19 @@ class Tracer:
             if after and i + 1 < len(ticks):
                 active.append((b, ticks[i + 1][0]))
         active = union(active)
-        gaps = []
-        for a, b in complement(busy, active[0][0], active[-1][1]) if active else []:
-            for x, y in intersect([(a, b)], active):
-                mid = 0.5 * (x + y)
-                name = next((SPAN_NAMES[n] for s0, s1, n in spans if s0 <= mid <= s1), OTHER_SPAN)
-                gaps.append((name, y - x))
-        gaps.sort(key=lambda g: -g[1])
+        from gpubench.spans import name_gaps, tick_spans
+        lo, hi = (active[0][0], active[-1][1]) if active else (0.0, 0.0)
+        program = [sp for ev in tick_events for sp in tick_spans(ev)
+                   if sp[1] >= lo and sp[0] <= hi]
+        gaps = name_gaps([g for a, b in (complement(busy, lo, hi) if active else [])
+                          for g in intersect([(a, b)], active)], program, spans)
         return {
             "kernel_s": kernel_s,
             "attention_calls": self.attention_calls,
             "gn_calls": self.gn_calls,
+            # {calls' key: (calls recorded, the wrapper's launches)} over the stretch
+            "call_counts": {"attention_calls": (len(self.attention_calls),
+                                                self.launches[1] - self.launches[0])},
             "busy_s": length(busy),
             "window_s": self.t_stop_pc - self.t_start_pc,
             "active_s": length(active),
