@@ -192,6 +192,8 @@ from repro_torch.examples import serve_hybrid_resolution as hybrid  # noqa: E402
 from repro_torch.examples import slo_scheduler_demo as slo_demo  # noqa: E402
 from repro_torch.examples import train_small_lm as train_example  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import fp32_gemm as gemm  # noqa: E402
+from repro_torch.kernels.fp32_gemm import fp32_gemm  # noqa: E402
 from repro_torch.kernels.groupnorm_stitch import (  # noqa: E402
     gn_partials, gn_stitch, groupnorm_stitch)
 from repro_torch.kernels.ops import fused_groupnorm_stitch  # noqa: E402
@@ -222,6 +224,7 @@ HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.float32: 67e12,            # GN-stitch: fp32 outside the tensor cores
               torch.bfloat16: 989e12, torch.float16: 989e12}
 BF16_MMA_FLOPS = 989e12                        # dense tensor cores (bf16 and fp16), data sheet
+TF32_MMA_FLOPS = 495e12                        # dense tensor cores (TF32), data sheet
 EXP2_PER_S = 3.9e12                            # 16 ex2/clock/SM x 132 SMs x ~1.83 GHz
 TOL = {torch.float32: {"gn": 1e-4, "attn": 1e-4},
        torch.bfloat16: {"gn": 2e-2, "attn": 3e-2},
@@ -249,6 +252,12 @@ CELL_ATTENTION = ([(1, S, None, 8, 40) for S in (4096, 9216, 16384)]
                   + [(1, S, None, 16, 72) for S in (1024, 2304, 4096)]
                   + [(1, 4096, 77, 8, 40), (1, 16384, 77, 8, 40), (1, 4096, 120, 16, 72),
                      (1, 1024, 77, 8, 160)])
+# (M, N, K) of the benchmark cells' fp32 products: PixArt-α's projections
+# and feed-forward at 4096 tokens (one 1024-px image) and its projections at
+# 1024 (one 512-px image), its text K and V (16 patches x 120 tokens of
+# 4096), SD 1.5's level-0 projections at 4096 pixels; and a ragged M, N, K
+CELL_GEMMS = ((4096, 1152, 1152), (4096, 4608, 1152), (4096, 1152, 4608), (1024, 1152, 1152),
+              (1920, 1152, 4096), (4096, 320, 320), (7400, 1150, 1148))
 # (level, C, G) of GN-stitch past the stitch's shared statistics: SD 1.5's
 # widest level with per-channel statistics, and with its own 32 groups
 GN_DOMAIN = ((2, 1280, 1280), (2, 1280, 32))
@@ -261,6 +270,9 @@ KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
     "patch_attention": (patch_attention, "src/repro_torch/kernels/csrc/patch_attention.cu",
                         "src/repro/kernels/patch_attention.py:72"),
 }
+# the fp32 GEMM replaces no TPU kernel (the reference leaves its products to
+# XLA); it is counted beside KERNELS, whose per-step launch checks it leaves
+GEMM_SOURCE = "src/repro_torch/kernels/csrc/fp32_gemm.cu"
 # the two kernels inside one groupnorm_stitch call, each counted by its wrapper
 GN_KERNELS = (gn_partials, gn_stitch)
 
@@ -434,7 +446,8 @@ def gn_rows(dev, gen, level: int, C: int, res: list, patch: int, dtype, modes,
 def phase_kernels(dev) -> dict:
     gen = torch.Generator().manual_seed(0)
     results = {"groupnorm_stitch": [], "patch_attention": [], "public_heads": [],
-               "cell_heads": [], "domain_groupnorm_stitch": [], "domain_patch_attention": []}
+               "cell_heads": [], "domain_groupnorm_stitch": [], "domain_patch_attention": [],
+               "fp32_gemm": []}
     # GN-stitch on the chip's three-request CSP: level 0 (p=32) and level 1 (p=16)
     for level, C in GN_LEVELS:
         f = 2 ** level
@@ -467,6 +480,11 @@ def phase_kernels(dev) -> dict:
     log(f"[attention cells] launches_by_route {routes}")
     if routes["mma_sync"]:
         raise RuntimeError(f"an fp32 call at the cells' shapes left the wgmma route: {routes}")
+    # the fp32 GEMM at the cells' product shapes, each on the kernel's route
+    for M, N, K in CELL_GEMMS:
+        if gemm.route(torch.float32, dev, M, N, K) != "wgmma_3xtf32":
+            raise RuntimeError(f"the cells' product {M}x{N}x{K} is off the GEMM kernel's route")
+        results["fp32_gemm"].append(gemm_row(dev, gen, M, N, K))
     attention_dims_sweep(dev, gen)
     # the rest of what the TPU kernels take, off the main path: attention at
     # other key lengths, wider heads and in fp16; GN-stitch past 512 groups and
@@ -544,6 +562,47 @@ def attention_row(dev, gen, B: int, S: int, H: int, D: int, dtype,
     return row
 
 
+def gemm_errors(got: torch.Tensor, exact: torch.Tensor) -> tuple:
+    """(RMS error over the RMS of ``exact``, max abs error) against fp64."""
+    d = got.double() - exact
+    return float(d.pow(2).mean().sqrt() / exact.pow(2).mean().sqrt()), float(d.abs().max())
+
+
+def gemm_row(dev, gen, M: int, N: int, K: int) -> dict:
+    """The fp32 GEMM kernel at one (M, N, K) against an fp64 product, beside
+    ``torch.matmul`` in fp32 (TF32 off: cuBLAS's FFMA kernels), with two
+    bounds: three TF32 passes at 495 TFLOP/s (or the bytes, a read once, the
+    weight's two halves once, c written once, if larger) and the work once
+    at 989 TFLOP/s, the peak ``mfu`` uses. Its errors must be at most 2x
+    torch's, RMS and max."""
+    a = torch.randn(M, K, generator=gen).to(dev)
+    w = (torch.randn(K, N, generator=gen) * K ** -0.5).to(dev)
+    exact = a.double() @ w.double()
+    before = fp32_gemm.launches
+    got = fp32_gemm(a, w)
+    torch.cuda.synchronize()
+    if fp32_gemm.launches != before + 1:
+        raise RuntimeError(f"fp32_gemm {M}x{N}x{K}: launches {before} -> {fp32_gemm.launches}")
+    rms, mx = gemm_errors(got, exact)
+    t_rms, t_mx = gemm_errors(a @ w, exact)
+    if rms > 2 * t_rms or mx > 2 * t_mx:
+        raise RuntimeError(f"fp32_gemm {M}x{N}x{K}: error RMS {rms:.3e} max {mx:.3e} against "
+                           f"torch.matmul's {t_rms:.3e} {t_mx:.3e}")
+    flops = 2 * M * N * K
+    n_bytes = 4 * (M * K + 2 * N * K + M * N)
+    bound3 = max(3 * flops / TF32_MMA_FLOPS, n_bytes / HBM_BYTES_PER_S) * 1e3
+    ms = cuda_ms(lambda: fp32_gemm(a, w))
+    row = dict(M=M, N=N, K=K, tile_n=gemm.tile_n(M, N, torch.cuda.get_device_properties(
+        dev).multi_processor_count), ms=ms, torch_ms=cuda_ms(lambda: a @ w),
+        bound_ms=bound3, bound_by="mma_3xtf32" if 3 * flops / TF32_MMA_FLOPS * 1e3 >= bound3
+        else "bytes", bound_1x_ms=flops / BF16_MMA_FLOPS * 1e3,
+        tflops=flops / ms / 1e9, rms_err=rms, max_abs_err=mx, torch_rms_err=t_rms,
+        torch_max_abs_err=t_mx)
+    row["share_of_bound"] = row["bound_ms"] / ms
+    log(f"[fp32_gemm] {json.dumps(row)}")
+    return row
+
+
 def attention_dims_sweep(dev, gen) -> None:
     """Every head dim from 1 to 512 in the three dtypes against
     ``ref_attention`` at two small shapes (one split-KV), and D = 1024 once;
@@ -582,6 +641,8 @@ def reset_launches() -> None:
     for fn in GN_KERNELS:
         fn.launches = 0
     patch_attention.launches_by_route = dict.fromkeys(patch_attention.launches_by_route, 0)
+    fp32_gemm.launches = 0
+    fp32_gemm.launches_by_route = dict.fromkeys(gemm.ROUTES, 0)
 
 
 def check_gn_kernels() -> None:
@@ -2279,6 +2340,7 @@ def heads_compare(dev, cfg, params, sides) -> dict:
                                     sides, False)
         if use:   # the fp32 models' every attention call on the wgmma route
             routes = dict(patch_attention.launches_by_route)
+            gemm_routes = dict(fp32_gemm.launches_by_route)
         peak[use] = (torch.cuda.max_memory_allocated(dev) - before) / 2 ** 20
         shapes[use] = sorted(seen)
     (got, ms, n, _), (want, plain_ms, plain_n, _) = runs[True], runs[False]
@@ -2298,16 +2360,18 @@ def heads_compare(dev, cfg, params, sides) -> dict:
                            f"plain-route attention calls {shapes[False]}")
     if routes["wgmma_3xbf16"] != n["patch_attention"]:
         raise RuntimeError(f"{tag}: attention launches_by_route {routes}")
+    if gemm_routes["wgmma_3xtf32"] <= 0:
+        raise RuntimeError(f"{tag}: no product on the GEMM kernel: {gemm_routes}")
     widths = sorted({(D, w) for *_, D, w in shapes[True]})
     log(f"[heads] {tag}: max |kernels - plain| {err:.3e} = {err / scale:.3e} of max |latent| "
         f"{scale:.3e} (bar {HEADS_TOL:g}) PSNR {db:.2f} dB; launches {n}, plain {plain_n}; "
-        f"attention launches_by_route {routes}; "
+        f"attention launches_by_route {routes}; fp32_gemm launches_by_route {gemm_routes}; "
         f"(head dim, instance width) {widths}; attention (B, S, H) "
         f"{sorted({(B, S, H) for B, S, H, *_ in shapes[True]})}; step ms kernels "
         f"{[round(x, 3) for x in ms]} plain {[round(x, 3) for x in plain_ms]}; peak device "
         f"memory MiB kernels {peak[True]:.1f} plain {peak[False]:.1f}")
-    return dict(launches=n, max_abs_err=err, rel_err=err / scale, psnr=db,
-                widths=[w for _, w in widths], peak_mib=peak[True],
+    return dict(launches=n, gemm_routes=gemm_routes, max_abs_err=err, rel_err=err / scale,
+                psnr=db, widths=[w for _, w in widths], peak_mib=peak[True],
                 plain_peak_mib=peak[False])
 
 
@@ -2324,7 +2388,8 @@ def phase_heads(dev, smi: str) -> dict:
         n_params = sum(p.numel() for p in tree_leaves(params))
         for sides in HEADS_SIDES[cfg.name]:
             out = heads_compare(dev, cfg, params, sides)
-            counts[f"{cfg.name}_{sum(h * w for h, w in sides) // 16 ** 2}p"] = out["launches"]
+            counts[f"{cfg.name}_{sum(h * w for h, w in sides) // 16 ** 2}p"] = dict(
+                out["launches"], fp32_gemm=out["gemm_routes"])
         kernel_ms, plain_ms = heads_timing(dev, cfg, params)
         depth = (f"{cfg.dit_depth} blocks" if cfg.kind == "dit" else
                  f"{cfg.levels} levels x {cfg.blocks_per_level} res blocks")
@@ -2388,6 +2453,13 @@ def kernels_line(results: dict, main_launches: dict, fleet: dict, entry: dict,
                                        for r in results["public_heads"]]
             out[-1]["cell_heads"] = [{k: v for k, v in r.items() if k in keep}
                                      for r in results["cell_heads"]]
+    rows = results["fp32_gemm"]
+    out.append({"name": "fp32_gemm", "route": "cuda", "source": GEMM_SOURCE,
+                "replaces": "none (the reference's products are jnp matmuls compiled by XLA)",
+                "max_rms_err": max(r["rms_err"] for r in rows),
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "cell_gemms": rows, "entry_points": ["ps_fp32_gemm"],
+                "heads_routes": {run: counts["fp32_gemm"] for run, counts in heads.items()}})
     return {"kernels": out}
 
 

@@ -15,8 +15,9 @@ GroupNorm comes in two modes:
   own stats, reproducing the paper's approximation.
 
 Every product goes through ``matmul``, which promotes mixed operands as
-``jnp`` does (fp32 with bf16 -> fp32); convolutions, like
-``lax.conv_general_dilated``, refuse mixed dtypes.
+``jnp`` does (fp32 with bf16 -> fp32), and under ``use_kernels`` takes a
+product of CUDA tensors to the fp32 GEMM kernel's route rule; convolutions,
+like ``lax.conv_general_dilated``, refuse mixed dtypes.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from repro_torch.core.csp import CSP
 from repro_torch.core.csp_device import csp_device
 from repro_torch.core.patching import group_images, ungroup_images
 from repro_torch.core.stitcher import gather_halo
+from repro_torch.kernels.fp32_gemm import weight_matmul
 
 
 def patch_request_index(csp: CSP, device: torch.device) -> torch.Tensor:
@@ -36,11 +38,16 @@ def patch_request_index(csp: CSP, device: torch.device) -> torch.Tensor:
     return csp_device(csp, device).patch_req
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def matmul(a: torch.Tensor, b: torch.Tensor, use_kernels: bool = False) -> torch.Tensor:
     """``a @ b`` with jnp's type promotion: the narrower operand is cast to
     the common dtype (fp32 with bf16 -> fp32), where ``torch.matmul``
     refuses mixed dtypes. Same-dtype operands are not copied, so their
-    product is bit for bit ``a @ b``."""
+    product is bit for bit ``a @ b``. With ``use_kernels`` and ``a`` on
+    CUDA, ``b`` is a weight and the product goes to
+    ``fp32_gemm.weight_matmul``: the fp32 GEMM kernel where its route rule
+    takes the dtype and shape, else ``a @ b``."""
+    if use_kernels and a.device.type == "cuda":
+        return weight_matmul(a, b)
     dt = torch.promote_types(a.dtype, b.dtype)
     return a.to(dt) @ b.to(dt)
 

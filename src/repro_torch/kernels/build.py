@@ -37,6 +37,7 @@ SIGNATURES = {
     **{f"ps_patch_attention_{t}": [_P] * 6 + [_I] * 6 + [_L] * 9 + [ctypes.c_float, _P]
        for t in ("f32", "bf16", "f16")},
     "ps_patch_attention_block_q": [_I, _I, ctypes.POINTER(_I)],
+    "ps_fp32_gemm": [_P] * 4 + [_I] * 3 + [_L] + [_I] * 2 + [_P],
 }
 
 

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the CUDA kernels: the CPU path and the oracle
 the kernels are held against; and plain models of the attention kernel's
-split-KV cut and of its tensor-core arithmetic, which only the tests use."""
+split-KV cut and of the kernels' tensor-core arithmetic."""
 from __future__ import annotations
 
 import math
@@ -123,3 +123,10 @@ def emulated_attention(q, k, v, bits: int = 7, passes: int = 3):
     p = torch.exp2(s * c - s.amax(dim=-1, keepdim=True) * c)
     o = split_matmul(p, vf, bits, passes) / p.sum(dim=-1, keepdim=True)
     return o.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def emulated_tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) @ b (K, N) as the fp32 GEMM kernel computes it: both operands
+    split into TF32 halves by round-to-nearest (``cvt.rna``), three passes
+    small*big + big*small + big*big, fp32 accumulation. The kernel's CPU path."""
+    return split_matmul(a.float(), b.float(), 10, 3)

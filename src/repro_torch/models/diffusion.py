@@ -11,8 +11,10 @@ Two families mirroring the paper's evaluation models:
   unpatched execution.
 
 With ``use_kernels`` every GroupNorm+stitch of a ResBlock and of the output
-head runs the fused CUDA kernel, and every image self-attention the flash
-attention kernel (on CUDA tensors; CPU tensors take their plain versions).
+head runs the fused CUDA kernel, every image self-attention the flash
+attention kernel, and every product with a weight the fp32 GEMM kernel's
+route rule (``patched_ops.matmul``; on CUDA tensors; CPU tensors take their
+plain versions).
 
 Every block is registered with a *kind* so the serving engine knows its
 patch semantics: "pixel" blocks are per-patch independent, "context" blocks
@@ -65,7 +67,7 @@ class DiffusionConfig:
     t_dim: int = 128              # timestep embedding
     steps: int = 50               # default denoising steps
     exact_stats: bool = True      # exact CSP GroupNorm vs paper per-patch
-    use_kernels: bool = True      # the CUDA GroupNorm+stitch and attention kernels
+    use_kernels: bool = True      # the CUDA GroupNorm+stitch, attention and GEMM kernels
     dtype: str = "float32"
 
 
@@ -191,30 +193,30 @@ def _res_block(cfg, csp: CSP, p, x: torch.Tensor, temb_p: torch.Tensor) -> torch
     h = _gn_stitch(cfg, csp, x, p["gn1"])
     h = F.silu(h)
     h = patched_ops.patched_conv(csp, None, p["conv1"]["w"], p["conv1"]["b"], haloed=h)
-    ss = matmul(F.silu(temb_p), p["temb_w"]) + p["temb_b"]      # (P, 2C)
+    ss = matmul(F.silu(temb_p), p["temb_w"], cfg.use_kernels) + p["temb_b"]   # (P, 2C)
     scale, shift = torch.chunk(ss, 2, dim=-1)
     h = h * (1 + scale[:, None, None, :]) + shift[:, None, None, :]
     h = _gn_stitch(cfg, csp, h, p["gn2"])
     h = F.silu(h)
     h = patched_ops.patched_conv(csp, None, p["conv2"]["w"], p["conv2"]["b"], haloed=h)
-    if "skip" in p:
-        x = patched_ops.patched_conv(csp, x, p["skip"]["w"], p["skip"]["b"])
+    if "skip" in p:   # a 1x1 conv: a product with the (Cin, Cout) weight
+        x = matmul(x, p["skip"]["w"][0, 0], cfg.use_kernels) + p["skip"]["b"]
     return x + h
 
 
-def _cross_attn(csp: CSP, p, x: torch.Tensor, text: torch.Tensor,
-                n_heads: int) -> torch.Tensor:
+def _cross_attn(cfg, csp: CSP, p, x: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
     """Pixel-wise cross-attention to the request's text tokens.
     x: (P, s, s, C); text: (R, T, d_text)."""
     P, s, _, C = x.shape
+    n_heads, kern = cfg.n_heads, cfg.use_kernels
     hd = C // n_heads
     tx = text[patch_request_index(csp, x.device)]               # (P, T, dt)
-    q = matmul(x.reshape(P, s * s, C), p["xq"]).reshape(P, s * s, n_heads, hd)
-    k = matmul(tx, p["xk"]).reshape(P, -1, n_heads, hd)
-    v = matmul(tx, p["xv"]).reshape(P, -1, n_heads, hd)
+    q = matmul(x.reshape(P, s * s, C), p["xq"], kern).reshape(P, s * s, n_heads, hd)
+    k = matmul(tx, p["xk"], kern).reshape(P, -1, n_heads, hd)
+    v = matmul(tx, p["xv"], kern).reshape(P, -1, n_heads, hd)
     sgn = torch.einsum("pqhd,pkhd->phqk", q.float(), k.float()) * hd ** -0.5
     o = torch.einsum("phqk,pkhd->pqhd", torch.softmax(sgn, -1), v.float())
-    o = matmul(o.reshape(P, s * s, C).to(x.dtype), p["xo"])
+    o = matmul(o.reshape(P, s * s, C).to(x.dtype), p["xo"], kern)
     return x + o.reshape(P, s, s, C)
 
 
@@ -227,11 +229,11 @@ def _self_attn(cfg, csp: CSP, p, x: torch.Tensor) -> torch.Tensor:
         def attn(imgs, _):
             n, H, Wd, _ = imgs.shape
             t = imgs.reshape(n, H * Wd, C)
-            q = matmul(t, p["wq"]).reshape(n, H * Wd, cfg.n_heads, hd)
-            k = matmul(t, p["wk"]).reshape(n, H * Wd, cfg.n_heads, hd)
-            v = matmul(t, p["wv"]).reshape(n, H * Wd, cfg.n_heads, hd)
+            q = matmul(t, p["wq"], cfg.use_kernels).reshape(n, H * Wd, cfg.n_heads, hd)
+            k = matmul(t, p["wk"], cfg.use_kernels).reshape(n, H * Wd, cfg.n_heads, hd)
+            v = matmul(t, p["wv"], cfg.use_kernels).reshape(n, H * Wd, cfg.n_heads, hd)
             o = grouped_attention_kernel(q, k, v)
-            o = matmul(o.reshape(n, H * Wd, C), p["wo"])
+            o = matmul(o.reshape(n, H * Wd, C), p["wo"], cfg.use_kernels)
             return o.reshape(n, H, Wd, C)
 
         return x + patched_ops.per_image_apply(csp, x, attn)
@@ -244,12 +246,12 @@ def _attn_block(cfg, csp: CSP, p, x: torch.Tensor, text: torch.Tensor) -> torch.
     h = patched_ops.patched_groupnorm(csp, x, p["gn"]["scale"], p["gn"]["bias"],
                                       cfg.groups, exact=cfg.exact_stats)
     h = _self_attn(cfg, csp, p, h)
-    h = _cross_attn(csp, p, h, text, cfg.n_heads)
+    h = _cross_attn(cfg, csp, p, h, text)
     hn = patched_ops.patched_groupnorm(csp, h, p["gn_ff"]["scale"], p["gn_ff"]["bias"],
                                        cfg.groups, exact=cfg.exact_stats)
     # jax.nn.gelu defaults to the tanh approximation; torch's default is erf
-    ff = matmul(F.gelu(matmul(hn.reshape(P, s * s, C), p["ff1"]), approximate="tanh"),
-                p["ff2"])
+    ff = matmul(F.gelu(matmul(hn.reshape(P, s * s, C), p["ff1"], cfg.use_kernels),
+                       approximate="tanh"), p["ff2"], cfg.use_kernels)
     return h + ff.reshape(P, s, s, C)
 
 
@@ -324,16 +326,17 @@ def denoise_patched(cfg: DiffusionConfig, params, csp: CSP, patches: torch.Tenso
     """
     seg = patch_request_index(csp, patches.device)
     temb = timestep_embedding(t_req, cfg.t_dim)
-    temb = F.silu(matmul(temb, params["temb_w1"]) + params["temb_b1"])
-    temb = matmul(temb, params["temb_w2"]) + params["temb_b2"]    # (R, t_dim)
+    kern = cfg.use_kernels
+    temb = F.silu(matmul(temb, params["temb_w1"], kern) + params["temb_b1"])
+    temb = matmul(temb, params["temb_w2"], kern) + params["temb_b2"]    # (R, t_dim)
     temb_p = temb[seg]                                            # (P, t_dim)
 
     run = block_hook or (lambda name, kind, fn, x: fn(x))
 
     if cfg.kind == "dit":
         x = run("tok_in", "pixel",
-                lambda xx: matmul(xx, params["tok_in"]) + params["tok_in_b"], patches)
-        mod = matmul(F.silu(temb), params["adaln_w"]) + params["adaln_b"]
+                lambda xx: matmul(xx, params["tok_in"], kern) + params["tok_in_b"], patches)
+        mod = matmul(F.silu(temb), params["adaln_w"], kern) + params["adaln_b"]
         sc, sh, gate = torch.chunk(mod[seg], 3, dim=-1)
         for i in range(cfg.dit_depth):
             name = f"blk{i}"
@@ -349,7 +352,7 @@ def denoise_patched(cfg: DiffusionConfig, params, csp: CSP, patches: torch.Tenso
             csp, x, params["out_norm"]["scale"], params["out_norm"]["bias"],
             cfg.groups, exact=cfg.exact_stats)
         return run("tok_out", "pixel",
-                   lambda xx: matmul(xx, params["tok_out"]) + params["tok_out_b"], x)
+                   lambda xx: matmul(xx, params["tok_out"], kern) + params["tok_out_b"], x)
 
     # unet
     x = run("stem", "context",

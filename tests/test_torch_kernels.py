@@ -23,7 +23,10 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.patch_attention import patch_attention as jattn  # noqa: E402
 from repro_torch.core.patching import split as tsplit  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.core import patched_ops as tops  # noqa: E402
 from repro_torch.core.csp_device import csp_device  # noqa: E402
+from repro_torch.kernels import fp32_gemm as gemm  # noqa: E402
+from repro_torch.kernels.fp32_gemm import fp32_gemm  # noqa: E402
 from repro_torch.kernels.groupnorm_stitch import (  # noqa: E402
     gn_partials, gn_stitch, groupnorm_stitch)
 from repro_torch.kernels.patch_attention import (  # noqa: E402
@@ -142,14 +145,19 @@ def test_grouped_attention_matches_pallas_interpret(B, S, H, D, dtype):
 
 
 def test_launch_counters_stay_zero_on_cpu():
-    counted = (gn_partials, gn_stitch, groupnorm_stitch, patch_attention)
+    counted = (gn_partials, gn_stitch, groupnorm_stitch, patch_attention, fp32_gemm)
     for fn in counted:
         fn.launches = 0
+    fp32_gemm.launches_by_route = dict.fromkeys(gemm.ROUTES, 0)
     jc, jp, tc, tp, scale, bias = _gn_inputs([(16, 16)], 8, "float32")
     ops.fused_groupnorm_stitch(tc, tp, torch.from_numpy(scale), torch.from_numpy(bias), 4)
     q = torch.randn(1, 16, 2, 8)
     ops.grouped_attention_kernel(q, q, q)
-    assert [fn.launches for fn in counted] == [0, 0, 0, 0]
+    a, w = torch.randn(512, 256), torch.randn(256, 256)
+    fp32_gemm(a, w)
+    tops.matmul(a, w, use_kernels=True)
+    assert [fn.launches for fn in counted] == [0, 0, 0, 0, 0]
+    assert fp32_gemm.launches_by_route == dict.fromkeys(gemm.ROUTES, 0)
 
 
 def test_launcher_signatures_match_sources():
@@ -161,7 +169,7 @@ def test_launcher_signatures_match_sources():
         for name, params in re.findall(r'extern "C" cudaError_t (\w+)\(([^)]*)\)', text):
             found[name] = len(params.split(","))
     assert {s.name for s in build.sources()} == {"groupnorm_stitch.cu",
-                                                 "patch_attention.cu"}
+                                                 "patch_attention.cu", "fp32_gemm.cu"}
     assert found == {name: len(args) for name, args in build.SIGNATURES.items()}
     assert {f"ps_gn_{kind}_{t}" for kind in ("partials", "stitch")
             for t in ("f32", "bf16", "f16")} <= set(found)
@@ -244,5 +252,100 @@ def test_wrappers_raise_off_the_cpu_instead_of_falling_back():
                 patch_attention(*args)
     with pytest.raises(ValueError, match=f"not in 1..{SLICE_WIDTH}"):
         instance_width(SLICE_WIDTH + 1)
+    a, w = torch.empty(512, 256, device="meta"), torch.empty(256, 256, device="meta")
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fp32_gemm(a, w)
     assert groupnorm_stitch.launches == 0 and patch_attention.launches == 0
-    assert gn_partials.launches == 0 and gn_stitch.launches == 0
+    assert gn_partials.launches == 0 and gn_stitch.launches == 0 and fp32_gemm.launches == 0
+
+
+# the cells' K: PixArt-alpha's 1152, 4096 (its text) and 4608, SD 1.5's 320
+# and 1280
+GEMM_K = (320, 1152, 1280, 4096, 4608)
+
+
+def _rms_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.double() - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt()).item()
+
+
+@pytest.mark.parametrize("K", GEMM_K)
+@pytest.mark.parametrize("bits,within", [(10, True), (7, False)], ids=["3xtf32", "3xbf16"])
+def test_emulated_split_product_against_fp64(K, bits, within):
+    """Three TF32 passes (``ref.emulated_tf32x3_matmul``, the fp32 GEMM
+    kernel's arithmetic) keep the RMS error of an fp32 product against fp64
+    within 2x; three bf16 passes (the attention kernel's) do not."""
+    gen = torch.Generator().manual_seed(K)
+    a, b = torch.randn(256, K, generator=gen), torch.randn(K, 256, generator=gen)
+    exact = a.double() @ b.double()
+    plain = _rms_rel(a @ b, exact)
+    got = ref.emulated_tf32x3_matmul(a, b) if bits == 10 else ref.split_matmul(a, b, bits, 3)
+    assert (_rms_rel(got, exact) <= 2 * plain) == within
+
+
+GEMM_ROUTE_CASES = [  # (dtype, device, M, N, K) -> route
+    ("float32", "cuda", 4096, 1152, 1152, "wgmma_3xtf32"),      # PixArt-alpha's projections
+    ("float32", "cuda", 4096, 4608, 1152, "wgmma_3xtf32"),      # its feed-forward
+    ("float32", "cuda", 1920, 1152, 4096, "wgmma_3xtf32"),      # its text K/V
+    ("float32", "cuda", 16384, 320, 320, "wgmma_3xtf32"),       # SD 1.5's level 0
+    ("bfloat16", "cuda", 4096, 1152, 1152, "torch"),
+    ("float32", "cpu", 4096, 1152, 1152, "torch"),
+    ("float32", "cuda", 4096, 1152, 4, "torch"),                # tok_in
+    ("float32", "cuda", 4096, 4, 1152, "torch"),                # tok_out
+    ("float32", "cuda", 12, 3456, 256, "torch"),                # adaLN: a row a request
+    ("float32", "cuda", gemm.MIN_M - 1, 1152, 1152, "torch"),
+    ("float32", "cuda", 4096, gemm.MIN_N - 2, 1152, "torch"),
+    ("float32", "cuda", 4096, 1152, gemm.MIN_K - 4, "torch"),
+    ("float32", "cuda", 4096, 1152, 1150, "torch"),             # K not whole 16 bytes
+    ("float32", "cuda", 4096, 1151, 1152, "torch"),             # odd N
+]
+
+
+@pytest.mark.parametrize("dtype,device,M,N,K,want", GEMM_ROUTE_CASES)
+def test_gemm_route_reads_dtype_device_and_shape(dtype, device, M, N, K, want):
+    assert gemm.route(getattr(torch, dtype), torch.device(device), M, N, K) == want
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+@pytest.mark.parametrize("a_dtype,b_dtype", [("float32", "float32"), ("float32", "bfloat16")])
+def test_matmul_on_cpu_is_a_at_b_bit_for_bit(use_kernels, a_dtype, b_dtype):
+    """On CPU tensors ``patched_ops.matmul`` is ``a @ b`` after jnp's
+    promotion whatever ``use_kernels`` says, and counts nothing."""
+    gen = torch.Generator().manual_seed(3)
+    a = torch.randn(2, 300, 256, generator=gen).to(getattr(torch, a_dtype))
+    b = torch.randn(256, 320, generator=gen).to(getattr(torch, b_dtype))
+    before = dict(fp32_gemm.launches_by_route)
+    assert torch.equal(tops.matmul(a, b, use_kernels), a @ b.float())
+    assert fp32_gemm.launches_by_route == before
+
+
+def test_weight_halves_split_once_per_weight_and_version():
+    """A weight's TF32 halves: K-major, big + small equal to it within
+    2^-22, TF32 values (13 low bits zero), computed once, shared by views of
+    one base, and computed again after an in-place change."""
+    w = torch.randn(1, 1, 96, 40, generator=torch.Generator().manual_seed(5))
+    big, small = gemm.weight_halves(w[0, 0])
+    assert big.shape == small.shape == (40, 96) and big.is_contiguous()
+    assert torch.all(big.view(torch.int32) & 0x1FFF == 0)
+    assert torch.all(small.view(torch.int32) & 0x1FFF == 0)
+    t = w[0, 0].t()
+    assert torch.all((big + small - t).abs() <= t.abs() * 2.0 ** -22)
+    again = gemm.weight_halves(w[0, 0])
+    assert again[0] is big and again[1] is small
+    w.mul_(2)
+    big2, _ = gemm.weight_halves(w[0, 0])
+    assert big2 is not big and torch.equal(big2, 2 * big)
+
+
+def test_fp32_gemm_plain_version_is_its_emulation():
+    gen = torch.Generator().manual_seed(7)
+    a, w = torch.randn(130, 64, generator=gen), torch.randn(64, 72, generator=gen)
+    assert torch.equal(fp32_gemm(a, w), ref.emulated_tf32x3_matmul(a, w))
+
+
+@pytest.mark.parametrize("M,N,want", [(4096, 1152, 128), (1024, 1152, 128), (16384, 320, 128),
+                                      (4096, 4608, 128), (1024, 640, 64), (1920, 1152, 128)])
+def test_gemm_tile_width_fills_the_card_in_whole_waves(M, N, want):
+    """The tile width at the cells' shapes on 132 SMs (``tile_n``): the
+    narrow tile only where its tiles fit in one wave and the wide one's do
+    not fill it much better."""
+    assert gemm.tile_n(M, N, 132) == want

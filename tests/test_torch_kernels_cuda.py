@@ -16,7 +16,9 @@ from repro_torch.core import patched_ops as tops  # noqa: E402
 from repro_torch.core import stitcher as tst  # noqa: E402
 from repro_torch.core.csp_device import csp_device  # noqa: E402
 from repro_torch.core.patching import split as tsplit  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import fp32_gemm as gemm  # noqa: E402
+from repro_torch.kernels.fp32_gemm import fp32_gemm  # noqa: E402
 from repro_torch.kernels.groupnorm_stitch import (  # noqa: E402
     gn_partials, gn_stitch, groupnorm_stitch)
 from repro_torch.kernels.patch_attention import (  # noqa: E402
@@ -69,6 +71,13 @@ WG_CELL_SHAPES = [(1, 16384, None, 8, 40), (1, 9216, None, 8, 40), (1, 4096, Non
                   (1, 4096, 77, 8, 40), (1, 4096, 120, 16, 72), (1, 65, None, 2, 40),
                   (1, 256, None, 2, 72), (3, 1024, None, 4, 80)]
 DTYPES = ["float32", "bfloat16", "float16"]
+# (M, N, K) of the cells' fp32 products: PixArt-α's projections at 4096 tokens,
+# its feed-forward at 1024 and 2048, its text K/V (16 patches x 120 tokens of
+# 4096), SD 1.5's level-0 projections and level-2 feed-forward; a ragged M, N
+# and K, and a ragged M and N at K = 4096
+GEMM_CELL_SHAPES = [(4096, 1152, 1152), (1024, 4608, 1152), (2048, 1152, 4608),
+                    (1920, 1152, 4096), (4096, 320, 320), (1856, 1280, 5120),
+                    (1000, 1150, 1148), (1337, 642, 4096)]
 
 
 def _tol(dtype, bf16_tol):
@@ -351,3 +360,84 @@ def test_launches_by_route_counts_each_call_on_its_route_on_cuda(dtype, D):
     tol = _tol(dtype, 3e-2)
     torch.testing.assert_close(got.float(), ref.ref_attention(q, k, v).float(),
                                rtol=tol, atol=tol)
+
+
+def _gemm_errors(got, exact):
+    """(RMS error over the RMS of ``exact``, max abs error) against fp64."""
+    d = got.double() - exact
+    return float(d.pow(2).mean().sqrt() / exact.pow(2).mean().sqrt()), float(d.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K", GEMM_CELL_SHAPES)
+@pytest.mark.parametrize("tile", [64, 128])
+def test_fp32_gemm_against_fp64_at_the_cells_shapes_on_cuda(M, N, K, tile, monkeypatch):
+    """The kernel at each tile width against an fp64 product: its RMS and
+    max errors at most 2x those of torch.matmul in fp32 (TF32 off), each
+    call one launch on the kernel's route."""
+    _need_cuda()
+    monkeypatch.setattr(gemm, "tile_n", lambda *_: tile)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator().manual_seed(M + N + K)
+    a = torch.randn(M, K, generator=gen).cuda()
+    w = (torch.randn(K, N, generator=gen) * K ** -0.5).cuda()
+    exact = a.double() @ w.double()
+    before = (fp32_gemm.launches, dict(fp32_gemm.launches_by_route))
+    got = fp32_gemm(a, w)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N) and got.dtype == torch.float32 and got.is_contiguous()
+    assert fp32_gemm.launches == before[0] + 1
+    assert fp32_gemm.launches_by_route == {**before[1],
+                                           "wgmma_3xtf32": before[1]["wgmma_3xtf32"] + 1}
+    rms, mx = _gemm_errors(got, exact)
+    t_rms, t_mx = _gemm_errors(a @ w, exact)
+    assert rms <= 2 * t_rms and mx <= 2 * t_mx, (rms, t_rms, mx, t_mx)
+
+
+@pytest.mark.cuda
+def test_weight_matmul_counts_each_call_on_its_route_on_cuda():
+    """Under use_kernels a product of CUDA tensors counts once on its route:
+    the kernel at the cells' shapes, torch.matmul for a product of a row a
+    request (adaLN); without use_kernels it is ``a @ b`` bit for bit and
+    counts nothing."""
+    _need_cuda()
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn(2, 1024, 1152, generator=gen).cuda()
+    w = (torch.randn(1152, 1152, generator=gen) / 34).cuda()
+    t = torch.randn(12, 256, generator=gen).cuda()
+    wt = torch.randn(256, 3456, generator=gen).cuda()
+    before = dict(fp32_gemm.launches_by_route)
+    got = tops.matmul(x, w, use_kernels=True)
+    small = tops.matmul(t, wt, use_kernels=True)
+    assert {r: fp32_gemm.launches_by_route[r] - before[r] for r in gemm.ROUTES} == {
+        "wgmma_3xtf32": 1, "torch": 1}
+    assert got.shape == (2, 1024, 1152) and torch.equal(small, t @ wt)
+    torch.testing.assert_close(got, x @ w, rtol=1e-4, atol=1e-4)
+    assert torch.equal(tops.matmul(x, w), x @ w)
+    assert {r: fp32_gemm.launches_by_route[r] - before[r] for r in gemm.ROUTES} == {
+        "wgmma_3xtf32": 1, "torch": 1}
+
+
+@pytest.mark.cuda
+def test_fp32_gemm_refuses_what_it_does_not_take_on_cuda():
+    """A launch the kernel does not take raises, in the wrapper or from the
+    library's own check, and launches nothing: no fallback."""
+    _need_cuda()
+    a = torch.randn(1024, 1160, device="cuda")
+    w = torch.randn(1152, 1152, device="cuda")
+    before = fp32_gemm.launches
+    for args, what in (((a[:, :1150], torch.randn(1150, 1152, device="cuda")), "multiple of 4"),
+                       ((a[:, :1152], torch.randn(1152, 1151, device="cuda")), "N even"),
+                       ((a[:, 1:1153], w), "16-byte aligned"),
+                       ((a[:, :1152].half(), w), "fp32 a"),
+                       ((a[:, :1152], w.cpu()), "one CUDA device")):
+        with pytest.raises(ValueError, match=what):
+            fp32_gemm(*args)
+    big, small = gemm.weight_halves(w)
+    out = torch.empty(1024, 1152, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    with pytest.raises(RuntimeError, match="cudaError_t"):   # a tile width it has no instance of
+        build.check(build.library().ps_fp32_gemm(a.data_ptr(), big.data_ptr(), small.data_ptr(),
+                                                  out.data_ptr(), 1024, 1152, 1152, 1160, 96,
+                                                  72, stream), "fp32_gemm")
+    assert fp32_gemm.launches == before
