@@ -12,10 +12,11 @@ from gpubench import inputs, serve, traffic as tm
 from gpubench_tiny import TINY_UNET, tiny_traffic
 
 TRAFFIC = sorted((Path(__file__).resolve().parents[1] / "traffic").glob("*.json"))
-# sha256 of each file's schedule at 51 s, as the generator drew it at commit 1f39a83
+# sha256 of each file's schedule at 51 s, as the generator drew it at commit 1f39a83;
+# the two pixart files' at the rates set from the knee of 0.8 req/s (0.64 and 1.0)
 PARENT_SCHEDULES = {
-    "pixart-mixed-overload": "4c767d3d58c4a625d788f9c27dcdaca220c40cb5e47881099a4264cdb40ba042",
-    "pixart-mixed-steady": "40e9899f8afbaeaea847b938abac8eccf7f60622059bf94ce0c1655dde425299",
+    "pixart-mixed-overload": "519eb34fc23d80eba3bdbfc74b3c27a9dbe399a79743774764aba12a97eed6f5",
+    "pixart-mixed-steady": "4965c715459da018f5155dee6122c556814510065682ee8446f1a4580f396acd",
     "sd15-512-steady": "fae105bb5ab38de9128d34b073c468b5f395636431249f007cb4e3cd74a99534",
     "sd15-mixed-overload": "b9077e3916895e23c81f6d66f896a581f0a3dc8f1d302bc80bc934e6ee93dadc",
     "sd15-mixed-steady": "225e1f163e6d2f708f67cf78611b5cb8e25f5892f5c407018857ee2e112295e0",
